@@ -6,8 +6,9 @@
     python -m poi_tpu configs
 
 Training composes: data pipeline → pjit'd train loop → periodic eval →
-orbax checkpointing (auto-resume from the latest checkpoint in the
-directory) → JSONL metrics. ``--set train.fault_inject_step=N`` exercises
+sharded checkpointing (auto-resume from the latest checkpoint in the
+directory) → JSONL metrics. Runs need a GPU; ``--platform cpu`` (or
+``JAX_PLATFORMS=cpu``) runs on the CPU on purpose (poi_tpu/backend.py). ``--set train.fault_inject_step=N`` exercises
 the crash/resume path end-to-end (SURVEY.md §5 failure detection).
 """
 
@@ -27,7 +28,10 @@ def main(argv: list[str] | None = None) -> int:
     def add_common(p):
         p.add_argument("--config", required=True, help="named config (see `configs`)")
         p.add_argument("--set", nargs="*", default=[], help="dotted overrides key=value")
-        p.add_argument("--platform", default=None, help="force jax platform (e.g. cpu)")
+        p.add_argument(
+            "--platform", default=None,
+            help="jax platform; 'cpu' runs on the CPU on purpose, otherwise a GPU is required",
+        )
         p.add_argument(
             "--debug", action="store_true",
             help="enable jax_debug_nans (fail fast on non-finite values; SURVEY.md §5 sanitizers)",
@@ -83,8 +87,9 @@ def main(argv: list[str] | None = None) -> int:
             print(name)
         return 0
 
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
+    from poi_tpu import backend
+
+    backend.init(args.platform)
     if getattr(args, "debug", False):
         jax.config.update("jax_debug_nans", True)
 
@@ -326,10 +331,9 @@ def run_serve(cfg, default_k: int = 10, step: int | None = None) -> int:
          "user_ids": [...]}``                                         (full)
     → one JSON response line: ``{"ids": [[...]]}`` or ``{"error": "..."}``
     (a bad request never kills the server). EOF ends the loop. The model,
-    catalog prep, and per-shape jit caches stay warm across requests, so
-    sustained cost is the measured ~27 µs/request marginal
-    (BASELINE.md serving row), not the per-invocation restore+compile that
-    ``recommend`` pays.
+    catalog prep, and per-shape jit caches stay warm across requests, so a
+    request pays only featurization and one top-k dispatch, not the
+    per-invocation restore+compile that ``recommend`` pays.
 
     Multi-process (``jax.process_count() > 1`` — a vocab-sharded catalog
     served warm, VERDICT r4 Missing #5): process 0 is the frontend (stdin/

@@ -9,8 +9,8 @@
 4. attention_gowalla   — attention-augmented sequence model (last-k check-ins)
                          with sampled softmax, Gowalla, 256-d
 5. multihost_1m        — multi-host scale-out: 1M-POI synthetic catalog,
-                         sharded 512-d tables, all-to-all lookup + fused
-                         top-k eval on N>=2 hosts
+                         sharded 512-d tables, all-to-all lookup + sharded
+                         top-k eval over a 4-card model axis
 """
 
 from __future__ import annotations
@@ -47,10 +47,11 @@ def list_configs() -> list[str]:
 # All single-chip benchmark presets hold out a validation split
 # (data.val_fraction=0.1, temporally preceding the test split) and the train
 # CLI / scripts/quality_runs.py select best-on-val params for the final test
-# eval (train/selection.py). This is the measured protocol behind every
-# BASELINE.md quality row from 2026-08-21 on: the check-in corpora are small
+# eval (train/selection.py). This is the protocol behind every quality
+# number below (README.md quality table): the check-in corpora are small
 # enough that every model passes its generalization peak mid-run (e.g.
-# config #4 peaks at step ~1000-2000 of 5000).
+# config #4 peaks at step ~1000-2000 of 5000). The quality numbers quoted
+# below are recall/NDCG on the synthetic corpora, not speed measurements.
 
 # --- config #1: plain GRU, Foursquare-NYC subset (BASELINE.json:7) -----------
 register(
@@ -177,12 +178,8 @@ register(
         # the config-#5 result — untouched-row moment decay hurts rare-POI
         # embeddings. (Config #2's BPR probe did NOT win — val 0.3809 vs
         # 0.3837 — so it stays dense.) At this vocab (37k) lazy Adam runs
-        # as the MASKED-DENSE path (sparse_opt.DENSE_LAZY_MAX_BYTES):
-        # same-window A/B 21.1k sparse vs 21.2k dense seq/s @ B=64, 23.9k
-        # vs 25.4k @ B=256 (scripts/bench_attn_step.py) — the earlier
-        # gather/scatter formulation lost 40% here, which is why the path
-        # dispatches on table size; config #5 (V=1M) keeps rows+scatter and
-        # wins both quality and speed.
+        # as the MASKED-DENSE path (sparse_opt.DENSE_LAZY_MAX_BYTES), which
+        # dispatches on table size; config #5 (V=1M) keeps rows+scatter.
         train=TrainConfig(
             batch_size=64, num_steps=5_000, lr_schedule="cosine",
             lr_min_frac=0.05, table_update="sparse",
@@ -202,13 +199,13 @@ register(
             mean_checkins_per_user=50,
             max_seq_len=64,
         ),
-        # attn_impl="blockwise" (replicated time axis) is a MEASURED choice,
-        # not a default: compiled-HLO wire traffic at these dims (T=64, W=16,
-        # D=512 — scripts/compare_attention_modes.py, BASELINE.md r5 table)
-        # is ~4-6 MB/device for blockwise vs 46-125 MB/device for ring/
-        # ulysses across model={2,4,8} — the SP modes' seq<->head resharding
-        # costs ~10-20x more ICI traffic than the whole attention block saves
-        # at check-in sequence lengths. ring/ulysses remain the long-context
+        # attn_impl="blockwise" (replicated time axis): compiled-HLO wire
+        # traffic at these dims (T=64, W=16, D=512 —
+        # scripts/compare_attention_modes.py) is ~4-6 MB/device for
+        # blockwise vs 46-125 MB/device for ring/ulysses across
+        # model={2,4,8}; the SP modes' seq<->head resharding moves ~10-20x
+        # more bytes between cards than the whole attention block saves at
+        # check-in sequence lengths. ring/ulysses remain the long-context
         # levers (per-device activation memory O(T/M)) for T >> 64.
         model=ModelConfig(
             kind="attention",
@@ -222,12 +219,11 @@ register(
         loss=LossConfig(kind="sampled_softmax", num_sampled=4096),
         # table_update="sparse": touched-rows-only lazy Adam. Only ~70k of the
         # 1M table rows (inputs ∪ targets ∪ negative pool) can carry gradient
-        # per step; dense Adam's read-modify-write over every row was ~20-30%
-        # of the step at this scale (VERDICT r4 Next #1; measured table in
-        # BASELINE.md "Config #5 step attribution").
+        # per step, so dense Adam's read-modify-write over every row is
+        # skipped.
         train=TrainConfig(batch_size=512, num_steps=10_000, table_update="sparse"),
         mesh=MeshConfig(data=-1, model=4, embedding_mode="a2a"),
-        eval=EvalConfig(topk_impl="pallas", batch_size=512),
+        eval=EvalConfig(batch_size=512),
         checkpoint=CheckpointConfig(directory="/tmp/poi_tpu_ckpt_1m"),
     )
 )
@@ -248,6 +244,6 @@ register(
         model=ModelConfig(kind="gru", embed_dim=32, hidden_dim=32),
         loss=LossConfig(kind="ce"),
         train=TrainConfig(batch_size=16, num_steps=50, eval_every=25, log_every=10),
-        eval=EvalConfig(batch_size=32, topk_impl="xla"),
+        eval=EvalConfig(batch_size=32),
     )
 )

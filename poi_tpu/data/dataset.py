@@ -400,8 +400,9 @@ def _stack_examples(users_out, rows, masks, T) -> Examples:
 
 
 def _cache_path(cfg: DataConfig) -> "pathlib.Path | None":
-    """Disk-cache location for a synthetic dataset build, or None when
-    caching is off. Key = the full DataConfig + a hash of EVERY preprocessing
+    """Disk-cache location for a synthetic dataset build (``.data_cache/`` at
+    the root of the checkout unless ``POI_TPU_DATA_CACHE`` says otherwise),
+    or None when caching is off. Key = the full DataConfig + a hash of EVERY preprocessing
     source that shapes the built arrays — including the C++ windowing fast
     path (native/preprocess.cc + its FFI wrapper), so a .cc-only semantic
     change invalidates the cache just like a .py change would.
@@ -411,13 +412,11 @@ def _cache_path(cfg: DataConfig) -> "pathlib.Path | None":
     import os
     import pathlib
 
-    cache_dir = os.environ.get(
-        "POI_TPU_DATA_CACHE", f"/tmp/poi_tpu_datasets_{os.getuid()}"
-    )
+    pkg = pathlib.Path(__file__).resolve().parents[1]
+    cache_dir = os.environ.get("POI_TPU_DATA_CACHE", str(pkg.parent / ".data_cache"))
     if cfg.path is not None or cache_dir.lower() in ("", "0", "off"):
         return None
     h = hashlib.sha256(repr(sorted(dataclasses.asdict(cfg).items())).encode())
-    pkg = pathlib.Path(__file__).resolve().parents[1]
     for src in (
         pkg / "data" / "dataset.py",
         pkg / "data" / "checkins.py",

@@ -1,11 +1,11 @@
-"""Device-resident batch sampling (the loader's TPU-native fast path).
+"""Device-resident batch sampling (the loader's zero-transfer fast path).
 
 The host loaders (``pipeline.py``) assemble every batch on CPU and ship
-~0.6 MB/step over PCIe (or worse, a tunnel). When the training examples fit
-in HBM — check-in datasets are tiny by accelerator standards (the 1M-POI
-config's *example* arrays are still ≲ a few GB; tables dominate, not
-sequences) — the TPU-native shape is: upload the example arrays ONCE, then
-sample each batch inside the jitted train step with a PRNG index gather. The
+~0.6 MB/step over PCIe. When the training examples fit in device memory —
+check-in datasets are tiny by accelerator standards (the 1M-POI config's
+*example* arrays are still ≲ a few GB; tables dominate, not sequences) —
+the example arrays are uploaded ONCE, and each batch is sampled inside the
+jitted train step with a PRNG index gather. The
 per-step host→device payload drops to zero and the data pipeline stops being
 a pipeline at all.
 

@@ -3,25 +3,15 @@
 The reference scores every POI per test user in a Python loop and argsorts a
 dense [V] vector. Here the whole eval set is batched: one jit'd function maps
 a batch of contexts to top-K candidate ids by scoring against the (possibly
-vocab-sharded) output table — either with XLA's ``lax.top_k`` (correctness
-oracle) or the fused Pallas score+top-k kernel (``ops/topk.py``). Metrics
-(Recall@{1,5,10}, NDCG) are then O(N·K) on host.
+vocab-sharded) output table with the chunked top-k of ``ops/topk.py``.
+Metrics (Recall@{1,5,10}, NDCG) are then O(N·K) on host.
 
 Sharded eval (the north star's eval sentence, SURVEY.md §2.2 T9): when a
 mesh with ``model > 1`` is passed, the vocab-sharded table NEVER leaves its
-``P('model', None)`` layout — catalog prep (popularity reorder + tile
-padding) runs per shard inside ``shard_map``, each shard runs the fused
-kernel over its own rows, and only the [B, M·k] candidate set is gathered.
-A 1M×512 catalog therefore costs V/M·D bytes of HBM per device end-to-end
-instead of being all-gathered to every chip per sweep.
-
-Eval-time catalog layout: the Pallas kernel's running-top-k merge skips vocab
-tiles that cannot beat any row's current k-th best, so laying the table out
-in descending train-popularity order (real check-in catalogs are power-law)
-concentrates winners in the first tiles and lets the tail stream at pure
-matmul speed. ``evaluate`` reorders the table once per sweep and maps the
-returned ids back through the permutation (per-shard local reorder in the
-sharded path, so the reorder itself moves no data across chips).
+``P('model', None)`` layout — each shard runs the chunked top-k over its own
+rows, and only the [B, M·k] candidate set is gathered. A 1M×512 catalog
+therefore costs V/M·D bytes of device memory per card end-to-end instead of
+being all-gathered to every card per sweep.
 
 Multi-host: with ``jax.process_count() > 1`` each process feeds only the
 global-batch rows its addressable devices own (assembled with
@@ -32,20 +22,17 @@ every test example is counted exactly once (SURVEY.md §2.2 T7, eval side).
 
 from __future__ import annotations
 
-import functools
 import logging
 from typing import NamedTuple
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 
 from poi_tpu.data.dataset import Dataset
 from poi_tpu.data.pipeline import eval_batches
 from poi_tpu.eval.metrics import ranking_metrics
 from poi_tpu.models import base as model_base
-from poi_tpu.ops.topk import NEG, fused_topk, make_sharded_topk, pad_table_for_topk, xla_topk
-from poi_tpu.train.losses import full_logits
+from poi_tpu.ops.topk import chunked_topk, make_sharded_topk
 from poi_tpu.utils.config import Config
 
 log = logging.getLogger(__name__)
@@ -62,12 +49,11 @@ def last_valid_queries(model, params: dict, batch) -> jax.Array:
 
 
 class PreparedCatalog(NamedTuple):
-    """Once-per-sweep table prep result."""
+    """The output table an eval sweep or a server scores against, taken out
+    of the params once (sharded like the params when a mesh is given)."""
 
-    table: jax.Array  # [V', D] (reordered / tile-padded; sharded if mesh)
+    table: jax.Array  # [V', D]
     bias: jax.Array  # [V']
-    id_map: np.ndarray | None  # kernel id -> catalog id (None = identity)
-    tile_v: int  # vocab tile the fused kernel must be built with
 
 
 def _is_sharded(mesh) -> bool:
@@ -76,115 +62,33 @@ def _is_sharded(mesh) -> bool:
     return mesh is not None and mesh.shape[MODEL_AXIS] > 1
 
 
-def prepare_catalog(
-    params: dict, cfg: Config, poi_counts: np.ndarray | None, mesh=None
-) -> PreparedCatalog:
-    """Popularity reorder + tile padding, once per eval sweep.
-
-    Dense path: global reorder/pad. Sharded path (``mesh.model > 1``): both
-    happen per shard inside shard_map, so the table stays P('model', None)
-    and no vocab-sized array ever crosses chips.
-    """
-    if _is_sharded(mesh):
-        return _prepare_catalog_sharded(params, cfg, poi_counts, mesh)
+def prepare_catalog(params: dict, cfg: Config) -> PreparedCatalog:
+    """(table, bias) that ``make_topk_fn``'s function scores against. Rows
+    are catalog ids; on a vocab-sharded mesh the table keeps its
+    P('model', None) layout."""
     table, bias = model_base.output_table(params, cfg.model)
-    order = None
-    tile_v = 2048
-    if cfg.eval.topk_impl == "pallas":
-        if poi_counts is not None:
-            order = np.argsort(-poi_counts).astype(np.int32)
-            pad = table.shape[0] - len(order)
-            if pad > 0:  # padded vocab rows stay at the tail
-                order = np.concatenate([order, np.arange(len(order), table.shape[0], dtype=np.int32)])
-            table = jnp.take(table, jnp.asarray(order), axis=0)
-            bias = jnp.take(bias, jnp.asarray(order), axis=0)
-        table, bias = pad_table_for_topk(table, bias, tile_v)
-    table, bias = jax.block_until_ready((table, bias))
-    return PreparedCatalog(table, bias, order, tile_v)
+    return PreparedCatalog(*jax.block_until_ready((table, bias)))
 
 
-def _prepare_catalog_sharded(
-    params: dict, cfg: Config, poi_counts: np.ndarray | None, mesh
-) -> PreparedCatalog:
-    from jax.experimental.shard_map import shard_map
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from poi_tpu.parallel.mesh import MODEL_AXIS
-
-    table, bias = model_base.output_table(params, cfg.model)
-    m = mesh.shape[MODEL_AXIS]
-    vp, _ = table.shape
-    assert vp % m == 0, f"padded vocab {vp} not divisible by model={m}"
-    rows = vp // m
-    if cfg.eval.topk_impl != "pallas":
-        # Per-shard lax.top_k needs no reorder or tile padding; shard-local
-        # ids are offset to global rows inside make_sharded_topk, and global
-        # rows of the contiguously-sharded padded table ARE catalog ids.
-        return PreparedCatalog(table, bias, None, 2048)
-
-    # Per-shard tile size: the fused kernel needs rows % tile_v == 0.
-    tile_v = min(2048, -(-rows // 128) * 128)
-    rows_p = -(-rows // tile_v) * tile_v
-    # Shard-local popularity order (host-side): a within-shard permutation,
-    # so applying it under shard_map is a purely local gather.
-    counts = np.full(vp, -1.0)
-    if poi_counts is not None:
-        n = min(len(poi_counts), vp)
-        counts[:n] = poi_counts[:n]
-    local_order = np.argsort(-counts.reshape(m, rows), axis=1).astype(np.int32)  # [M, rows]
-
-    @functools.partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=(P(MODEL_AXIS, None), P(MODEL_AXIS), P(MODEL_AXIS, None)),
-        out_specs=(P(MODEL_AXIS, None), P(MODEL_AXIS)),
-    )
-    def _prep(t_blk, b_blk, order_blk):
-        o = order_blk[0]
-        t2 = jnp.take(t_blk, o, axis=0)
-        b2 = jnp.take(b_blk, o, axis=0)
-        if rows_p > rows:
-            t2 = jnp.pad(t2, ((0, rows_p - rows), (0, 0)))
-            b2 = jnp.pad(b2, (0, rows_p - rows), constant_values=NEG)
-        return t2, b2
-
-    # make_array_from_callback (not device_put): only addressable shards are
-    # materialized, so this works on meshes spanning multiple processes.
-    order_dev = jax.make_array_from_callback(
-        local_order.shape,
-        NamedSharding(mesh, P(MODEL_AXIS, None)),
-        lambda idx: local_order[idx],
-    )
-    table_s, bias_s = jax.jit(_prep)(table, bias, order_dev)
-    # Kernel ids live in the per-shard-padded space: shard*rows_p + local row.
-    id_map = np.zeros(m * rows_p, np.int32)
-    for s in range(m):
-        id_map[s * rows_p : s * rows_p + rows] = s * rows + local_order[s]
-    table_s, bias_s = jax.block_until_ready((table_s, bias_s))
-    return PreparedCatalog(table_s, bias_s, id_map, tile_v)
-
-
-def make_topk_fn(model, cfg: Config, k: int, mesh=None, tile_v: int = 2048):
-    """jit'd (params, table, bias, batch) -> [B, k] candidate ids (in the
-    prepared table's id space).
+def make_topk_fn(model, cfg: Config, k: int, mesh=None):
+    """jit'd (params, table, bias, batch) -> [B, k] catalog ids.
 
     The jit closures are cached ON the model instance (``model._topk_cache``),
-    keyed by (impl, k, mesh, tile_v): periodic in-training evals must not
-    recompile every sweep, and the cache's lifetime is exactly the model's —
-    no module-global keyed on a reusable ``id()`` that could serve a stale
-    closure to a new model, and no unbounded growth in a long-lived serving
-    process (VERDICT r2 Weak #2). The model→cache→closure→model cycle is
-    ordinary cyclic garbage, collected when the last external reference goes.
+    keyed by (k, mesh): periodic in-training evals must not recompile every
+    sweep, and the cache's lifetime is exactly the model's — no module-global
+    keyed on a reusable ``id()`` that could serve a stale closure to a new
+    model, and no unbounded growth in a long-lived serving process (VERDICT
+    r2 Weak #2). The model→cache→closure→model cycle is ordinary cyclic
+    garbage, collected when the last external reference goes.
     """
-    impl = cfg.eval.topk_impl
     sharded = _is_sharded(mesh)
     per_model = model.__dict__.setdefault("_topk_cache", {})
-    key = (impl, k, mesh if sharded else None, tile_v if sharded else None)
+    key = (k, mesh if sharded else None)
     if key in per_model:
         return per_model[key]
 
     if sharded:
-        core = make_sharded_topk(mesh, k, impl=impl, tile_v=tile_v)
+        core = make_sharded_topk(mesh, k)
 
         @jax.jit
         def fn(params, table, bias, batch):
@@ -196,10 +100,7 @@ def make_topk_fn(model, cfg: Config, k: int, mesh=None, tile_v: int = 2048):
         @jax.jit
         def fn(params, table, bias, batch):
             ql = last_valid_queries(model, params, batch)
-            if impl == "pallas":
-                return fused_topk(ql, table, bias, k)[1]
-            scores = full_logits(ql, table, bias)  # [B, V]
-            return jax.lax.top_k(scores, k)[1]
+            return chunked_topk(ql, table, bias, k)[1]
 
     per_model[key] = fn
     return fn
@@ -224,8 +125,8 @@ def evaluate(
     k = max(ks)
     sharded = _is_sharded(mesh)
     multiproc = jax.process_count() > 1
-    prep = prepare_catalog(params, cfg, dataset.poi_counts, mesh if sharded else None)
-    topk_fn = make_topk_fn(model, cfg, k, mesh=mesh if sharded else None, tile_v=prep.tile_v)
+    prep = prepare_catalog(params, cfg)
+    topk_fn = make_topk_fn(model, cfg, k, mesh=mesh if sharded else None)
 
     test = getattr(dataset, split)
     if test is None:
@@ -274,8 +175,6 @@ def evaluate(
         else:
             ids = np.asarray(ids_dev)[:n_valid]
             tgt = targets[:n_valid]
-        if prep.id_map is not None:
-            ids = prep.id_map[ids]  # back to catalog id space
         all_topk.append(ids)
         all_tgt.append(tgt)
     topk = np.concatenate(all_topk)

@@ -5,7 +5,7 @@ needs the forward path packaged for serving. ``Recommender`` closes over a
 trained (model, params) pair plus the dataset's featurizer parameters
 (geo-grid bounds, time buckets, ST-RNN quantile edges — persisted on
 ``Dataset``), featurizes new histories exactly like training data, and runs
-the batched fused top-k scorer. Already-visited POIs can be excluded
+the batched chunked top-k scorer. Already-visited POIs can be excluded
 (standard next-POI protocol) by over-fetching and post-filtering.
 """
 
@@ -41,18 +41,16 @@ class Recommender:
         self.ds = dataset
         self.mesh = mesh
         self.T = dataset.max_seq_len
-        self._prep = prepare_catalog(params, cfg, dataset.poi_counts, mesh)
+        self._prep = prepare_catalog(params, cfg)
 
     # ----------------------------------------------------------- featurize
     def _featurize(self, histories: list[list[Checkin]]) -> Batch:
         """Vectorized request featurization (one flat numpy pass).
 
-        The original per-checkin Python loop dominated end-to-end serving
-        cost: scripts/bench_serve.py measured ~600 us marginal per request at
-        B=256 while the fused top-k itself is ~2 ms/batch — i.e. >95% of
-        sustained serving time was host featurization. All arithmetic below
-        is expression-identical to the scalar version (same clip/floor
-        semantics), just over flat [sum(n_b)] arrays."""
+        A per-checkin Python loop here would dominate end-to-end serving
+        cost, so the arithmetic runs over flat [sum(n_b)] arrays; it is
+        expression-identical to the scalar version (same clip/floor
+        semantics)."""
         ds, T = self.ds, self.T
         B = len(histories)
         lat_lo, lat_hi, lon_lo, lon_hi = ds.geo_bounds
@@ -144,11 +142,11 @@ class Recommender:
         needed = k + (max_hist if exclude_visited else 0)
         # Bucket the over-fetch to the next power of two (capped at the
         # catalog): `fetch` feeds the jit cache key, so without bucketing
-        # every distinct longest-history length compiles a fresh top-k kernel
+        # every distinct longest-history length compiles a fresh top-k
         # (VERDICT r2 Weak #3). Extra candidates are harmless — the visited
         # filter below just has more to choose from.
         fetch = min(1 << (needed - 1).bit_length(), int(self._prep.table.shape[0]))
-        topk_fn = make_topk_fn(self.model, self.cfg, fetch, mesh=self.mesh, tile_v=self._prep.tile_v)
+        topk_fn = make_topk_fn(self.model, self.cfg, fetch, mesh=self.mesh)
         n_req = len(histories)
         # Bucket the batch dim too (request count varies per call); the mesh
         # path additionally pads to the data-axis size for static shards.
@@ -168,8 +166,6 @@ class Recommender:
 
             batch = jax.device_put(batch, batch_shardings(batch, self.mesh))
         ids = np.asarray(topk_fn(self.params, self._prep.table, self._prep.bias, batch))[:n_req]
-        if self._prep.id_map is not None:
-            ids = self._prep.id_map[ids]
         return self._finalize(ids, histories, k, exclude_visited)
 
     @staticmethod
@@ -240,9 +236,7 @@ class Recommender:
         if not primary:
             batch = self._zero_batch(pad_to)
         batch = jax.tree.map(np.asarray, multihost_utils.broadcast_one_to_all(batch))
-        topk_fn = make_topk_fn(
-            self.model, self.cfg, fetch, mesh=self.mesh, tile_v=self._prep.tile_v
-        )
+        topk_fn = make_topk_fn(self.model, self.cfg, fetch, mesh=self.mesh)
         shardings = batch_shardings(batch, self.mesh)
         local_rows = _local_batch_rows(jax.tree.leaves(shardings)[0], pad_to)
         local = jax.tree.map(lambda x: np.asarray(x)[local_rows], batch)
@@ -263,8 +257,6 @@ class Recommender:
         if not primary:
             return None
         ids = full[:n_req]
-        if self._prep.id_map is not None:
-            ids = self._prep.id_map[ids]
         return self._finalize(ids, histories, k, exclude_visited)
 
     def _zero_batch(self, B: int) -> Batch:

@@ -53,10 +53,7 @@ class AttentionModel(base.SequenceModel):
     def tower(self, tower_params: dict, x: jax.Array, batch) -> jax.Array:
         cfg = self.cfg
         dtype = base.compute_dtype(cfg)
-        h = gru_layer(
-            tower_params["gru"], x, batch.mask, dtype,
-            remat=cfg.remat_cell, cell_impl=cfg.cell_impl,
-        )
+        h = gru_layer(tower_params["gru"], x, batch.mask, dtype, remat=cfg.remat_cell)
         if self.sp_mha is not None:
             o = self.sp_mha(h, tower_params["mha"])
         else:
@@ -80,10 +77,7 @@ class AttentionModel(base.SequenceModel):
         sharding."""
         cfg = self.cfg
         dtype = base.compute_dtype(cfg)
-        h = gru_layer(
-            tower_params["gru"], x, batch.mask, dtype,
-            remat=cfg.remat_cell, cell_impl=cfg.cell_impl,
-        )
+        h = gru_layer(tower_params["gru"], x, batch.mask, dtype, remat=cfg.remat_cell)
         o = multihead_attention_last(
             h, tower_params["mha"], num_heads=cfg.attn_heads,
             window=cfg.attn_window, last=last, dtype=dtype,

@@ -56,9 +56,12 @@ class DataDims:
             object.__setattr__(self, "num_pois_padded", self.num_pois)
 
     def padded_to(self, model_shards: int) -> "DataDims":
+        """Rounds the padded catalog up to a multiple of ``model_shards``
+        (keeping any larger padding already applied, so a one-card run can
+        hold the same table shapes as a sharded one)."""
         import dataclasses
 
-        pad = -(-self.num_pois // model_shards) * model_shards
+        pad = -(-self.num_pois_padded // model_shards) * model_shards
         return dataclasses.replace(self, num_pois_padded=pad)
 
     @classmethod
@@ -75,43 +78,6 @@ class DataDims:
 
 def compute_dtype(cfg: ModelConfig):
     return jnp.bfloat16 if cfg.compute_dtype == "bfloat16" else jnp.float32
-
-
-_fused_fallback_warned: set = set()
-
-
-def use_fused_cell(cell_impl: str, kind: str, dims_ok: bool, dtype) -> bool:
-    """Resolve a ``cell_impl`` config knob to a fused-kernel decision.
-
-    ``"pallas"`` forced with unsupported dims (e.g. B % 8 != 0 — the Mosaic
-    sublane requirement) falls back to the ``lax.scan`` cell with a one-time
-    warning instead of crashing inside tile selection (VERDICT r2 Weak #4).
-    """
-    if cell_impl == "pallas":
-        if dims_ok:
-            return True
-        if kind not in _fused_fallback_warned:
-            _fused_fallback_warned.add(kind)
-            import logging
-
-            logging.getLogger(__name__).warning(
-                "cell_impl='pallas' requested but the fused %s kernel does not "
-                "support these dims (batch must be a multiple of 8); falling "
-                "back to the lax.scan cell.",
-                kind,
-            )
-        return False
-    # "auto" policy is measured, not assumed: the fused kernels win or tie
-    # fwd+bwd at every preset (B, H) shape — 3.16x at the bench shape
-    # (gru B=256 H=128), 2.03x at config #5's batch-tiled B=512/H=512, worst
-    # case 0.98x (parity) at config #4's B=64/H=256. Table in BASELINE.md
-    # ("Fused recurrence kernels vs lax.scan", 2026-08-20).
-    return (
-        cell_impl == "auto"
-        and jax.default_backend() == "tpu"
-        and dims_ok
-        and dtype == jnp.bfloat16  # the kernels' matmuls are bf16/f32-accum
-    )
 
 
 # --------------------------------------------------------------------------- #

@@ -1,10 +1,10 @@
 """GRU next-POI tower (reference R4, config #1 — BASELINE.json:7).
 
-TPU-first layout: the input-to-gate projection for ALL timesteps is one big
-[B*T, D] x [D, 3H] matmul done outside the scan (MXU-friendly), so the
-``lax.scan`` body is a single [B, H] x [H, 3H] matmul plus VPU gate math —
-the recurrent serial chain does the minimum possible work per step. This
-replaces the reference's ``theano.scan`` GRU recurrence (SURVEY.md §3.1a).
+Layout: the input-to-gate projection for ALL timesteps is one big
+[B*T, D] x [D, 3H] matmul done outside the scan, so the ``lax.scan`` body is
+a single [B, H] x [H, 3H] matmul plus elementwise gate math — the recurrent
+serial chain does the minimum possible work per step. This replaces the
+reference's ``theano.scan`` GRU recurrence (SURVEY.md §3.1a).
 """
 
 from __future__ import annotations
@@ -31,34 +31,16 @@ def gru_layer(
     mask: jax.Array | None,
     dtype,
     remat: bool = False,
-    cell_impl: str = "auto",
 ) -> jax.Array:
     """[B, T, D] → [B, T, H]."""
     B, T, _ = x.shape
     H = p["wh"].shape[0]
-    # Hoisted input projection: one large MXU matmul for all timesteps.
+    # Hoisted input projection: one large matmul for all timesteps.
     xw = (
         jnp.dot(x.astype(dtype), p["wx"].astype(dtype), preferred_element_type=jnp.float32)
         + p["b"]
     )  # [B, T, 3H]
     wh = p["wh"].astype(dtype)
-
-    from poi_tpu.ops import fused_gru
-
-    use_pallas = base.use_fused_cell(
-        cell_impl, "gru", fused_gru.gru_dims_supported(B, H), dtype
-    )
-    if use_pallas:
-        from poi_tpu.ops.cell_pad import pad_gate_blocks
-
-        # Fold the padding mask into the update gate: z == 0 on padded steps
-        # makes the carry pass through exactly (see ops/fused_gru.py).
-        if mask is not None:
-            xw = xw.at[:, :, :H].set(
-                jnp.where(mask[:, :, None], xw[:, :, :H], fused_gru.MASK_NEG)
-            )
-        xw_p, wh_p, H0 = pad_gate_blocks(xw, wh, 3)
-        return fused_gru.fused_gru_scan(xw_p, wh_p)[..., :H0]
 
     def step(h, xw_t):
         hw = jnp.dot(h.astype(dtype), wh, preferred_element_type=jnp.float32)
@@ -93,7 +75,5 @@ class GRUModel(base.SequenceModel):
         mask = batch.mask
         h = x
         for p in tower_params["layers"]:
-            h = gru_layer(
-                p, h, mask, dtype, remat=self.cfg.remat_cell, cell_impl=self.cfg.cell_impl
-            )
+            h = gru_layer(p, h, mask, dtype, remat=self.cfg.remat_cell)
         return h

@@ -1,11 +1,10 @@
 """LSTM tower with user embedding, paired with BPR loss in config #2
 (reference R5 — BASELINE.json:8).
 
-Same TPU layout as the GRU: hoisted [B*T, D] x [D, 4H] input projection, scan
-body is one [B, H] x [H, 4H] matmul + VPU gates; on TPU with aligned dims the
-whole recurrence runs as one Pallas kernel per direction (ops/fused_lstm.py,
-``model.cell_impl``). The user-embedding addition
-to the scoring query is handled by ``base.add_user_query`` (cfg.use_user_embedding).
+Same layout as the GRU: hoisted [B*T, D] x [D, 4H] input projection, scan
+body is one [B, H] x [H, 4H] matmul + elementwise gates. The user-embedding
+addition to the scoring query is handled by ``base.add_user_query``
+(cfg.use_user_embedding).
 """
 
 from __future__ import annotations
@@ -35,7 +34,6 @@ def lstm_layer(
     mask: jax.Array | None,
     dtype,
     remat: bool = False,
-    cell_impl: str = "auto",
 ) -> jax.Array:
     B, T, _ = x.shape
     H = p["wh"].shape[0]
@@ -44,24 +42,6 @@ def lstm_layer(
         + p["b"]
     )
     wh = p["wh"].astype(dtype)
-
-    from poi_tpu.ops import fused_lstm
-
-    use_pallas = base.use_fused_cell(
-        cell_impl, "lstm", fused_lstm.lstm_dims_supported(B, H), dtype
-    )
-    if use_pallas:
-        from poi_tpu.ops.cell_pad import pad_gate_blocks, padded_hidden
-
-        # Explicit lane-aligned mask operand: an LSTM has no single gate that
-        # freezes both carries (see ops/fused_lstm.py docstring).
-        xw_p, wh_p, H0 = pad_gate_blocks(xw, p["wh"], 4)
-        Hp = padded_hidden(H)
-        if mask is None:
-            m_bh = jnp.ones((B, T, Hp), jnp.float32)
-        else:
-            m_bh = jnp.broadcast_to(mask[:, :, None].astype(jnp.float32), (B, T, Hp))
-        return fused_lstm.fused_lstm_scan(xw_p, m_bh, wh_p)[..., :H0]
 
     def step(carry, xw_t):
         h, c = carry["h"], carry["c"]
@@ -96,8 +76,5 @@ class LSTMModel(base.SequenceModel):
         dtype = base.compute_dtype(self.cfg)
         h = x
         for p in tower_params["layers"]:
-            h = lstm_layer(
-                p, h, batch.mask, dtype,
-                remat=self.cfg.remat_cell, cell_impl=self.cfg.cell_impl,
-            )
+            h = lstm_layer(p, h, batch.mask, dtype, remat=self.cfg.remat_cell)
         return h

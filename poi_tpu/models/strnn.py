@@ -11,10 +11,10 @@ since the previous check-in. The loader precomputes (lower-bucket index,
 fraction) pairs at data quantiles (``data/dataset.py:bucketize_interp``), so
 the model never bucketizes on device.
 
-TPU-first trick (SURVEY.md §7 "hard parts"): instead of gathering a per-step
-[B, d, d] interpolated matrix (HBM-bandwidth bound), we apply EVERY endpoint
-matrix to the inputs with one einsum — K+1 MXU matmuls over the whole [B, T]
-block — and then lerp between the two relevant results per step:
+Trick (SURVEY.md §7 "hard parts"): instead of gathering a per-step
+[B, d, d] interpolated matrix (memory-bandwidth bound), we apply EVERY
+endpoint matrix to the inputs with one einsum — K+1 matmuls over the whole
+[B, T] block — and then lerp between the two relevant results per step:
 
     S(dd) x = (1-w) * (x @ S_lo^T) + w * (x @ S_hi^T)
 
@@ -38,7 +38,7 @@ def apply_interpolated(tables: jax.Array, x: jax.Array, idx: jax.Array, frac: ja
     x:      [B, T, D]
     idx:    [B, T] int32 in [0, K-1]; frac: [B, T] in [0, 1]
     """
-    # One batched MXU einsum applies all endpoints: [B, T, K+1, D].
+    # One batched einsum applies all endpoints: [B, T, K+1, D].
     all_applied = jnp.einsum(
         "btd,ked->btke",
         x.astype(dtype),
@@ -88,28 +88,6 @@ class STRNNModel(base.SequenceModel):
             jnp.dot(tsx.astype(dtype), p["w_in"].astype(dtype), preferred_element_type=jnp.float32)
             + p["b"]
         )  # [B, T, H]
-
-        from poi_tpu.ops import fused_rnn
-
-        use_pallas = base.use_fused_cell(
-            cfg.cell_impl,
-            "strnn",
-            fused_rnn.rnn_dims_supported(B, cfg.hidden_dim),
-            dtype,
-        )
-        if use_pallas:
-            from poi_tpu.ops.cell_pad import pad_gate_blocks, padded_hidden
-
-            T = x.shape[1]
-            xin_p, c_p, H0 = pad_gate_blocks(xin, p["c"], 1)
-            Hp = padded_hidden(cfg.hidden_dim)
-            if batch.mask is None:
-                m_bh = jnp.ones((B, T, Hp), jnp.float32)
-            else:
-                m_bh = jnp.broadcast_to(
-                    batch.mask[:, :, None].astype(jnp.float32), (B, T, Hp)
-                )
-            return fused_rnn.fused_rnn_scan(xin_p, m_bh, c_p)[..., :H0]
 
         c = p["c"].astype(dtype)
 

@@ -1,7 +1,10 @@
 """ctypes bindings for the native preprocessing fast path.
 
-The shared library is compiled on first use (g++ -O3, cached next to the
-source); if no toolchain is available the caller falls back to the pure-
+The shared library is compiled on first use (g++ -O3 for the generic
+target of the host's architecture, never ``-march=native``) into ``build/``
+beside the source. Its file name carries a hash of the source, the flags and
+the machine's identity, so a library built on another machine is never
+loaded here; if no toolchain is available the caller falls back to the pure-
 Python implementation in ``poi_tpu/data/dataset.py`` (which doubles as the
 property-test oracle — tests/test_native.py asserts bit-identical outputs).
 """
@@ -9,9 +12,12 @@ property-test oracle — tests/test_native.py asserts bit-identical outputs).
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import logging
 import os
+import platform
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
@@ -20,7 +26,8 @@ log = logging.getLogger(__name__)
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "preprocess.cc")
-_LIB = os.path.join(_HERE, "libpoipreprocess.so")
+_BUILD_DIR = os.path.join(_HERE, "build")
+_FLAGS = ["-O3", "-shared", "-fPIC"]
 _lock = threading.Lock()
 _lib = None
 _tried = False
@@ -31,17 +38,35 @@ _U8 = ctypes.POINTER(ctypes.c_uint8)
 _F32 = ctypes.POINTER(ctypes.c_float)
 
 
+def library_path() -> str:
+    """Where this machine's build of the library lives."""
+    h = hashlib.sha256()
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(_FLAGS).encode())
+    h.update(f"{platform.node()}|{platform.machine()}|{platform.platform()}".encode())
+    return os.path.join(_BUILD_DIR, f"libpoipreprocess-{h.hexdigest()[:16]}.so")
+
+
 def _build() -> str | None:
-    if os.path.exists(_LIB) and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC):
-        return _LIB
+    lib = library_path()
+    if os.path.exists(lib):
+        return lib
     try:
-        subprocess.run(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-o", _LIB, _SRC],
-            check=True,
-            capture_output=True,
-            timeout=120,
-        )
-        return _LIB
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        # Compile to a private name, then rename: concurrent builders (test
+        # workers) never load a half-written library.
+        fd, tmp = tempfile.mkstemp(dir=_BUILD_DIR, suffix=".so.tmp")
+        os.close(fd)
+        try:
+            subprocess.run(
+                ["g++", *_FLAGS, "-o", tmp, _SRC], check=True, capture_output=True, timeout=120
+            )
+            os.replace(tmp, lib)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        return lib
     except (OSError, subprocess.SubprocessError) as e:
         log.warning("native preprocess unavailable (%s); using Python fallback", e)
         return None

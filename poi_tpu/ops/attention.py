@@ -209,12 +209,10 @@ def multihead_attention(
         o = vanilla_attention(q, k, v, window)
     elif impl == "banded" or (impl == "blockwise" and window >= 128 and T >= 2 * window):
         # The band formulation is numerically identical and skips the
-        # provably-masked score tiles, but its [W, 2W] score matmuls only
-        # beat blockwise when W fills the 128-wide MXU tile: measured at
-        # config #4's W=16/T=128 it LOSES (~10% whole-step) — 4x fewer
-        # logical FLOPs, worse hardware tiles — so the automatic dispatch
-        # requires window >= 128. The SP modes keep the true blockwise
-        # inner loop (they need kv_offset).
+        # provably-masked score tiles, but its [W, 2W] score matmuls are
+        # far smaller than a good matrix-unit tile at config #4's W=16, so
+        # the automatic dispatch requires window >= 128. The SP modes keep
+        # the true blockwise inner loop (they need kv_offset).
         o = banded_attention(q, k, v, window)
     elif impl == "blockwise":
         o = blockwise_attention(q, k, v, window, block_size)

@@ -14,13 +14,16 @@ rules, both property-tested against a dense gather:
   outputs (our DP towers do).
 
 - ``a2a``   (MoE-style routing): ids are split over the 'model' axis
-  (each shard processes N/M of them), bucketed by owner shard into
-  fixed-capacity buckets, exchanged with ``all_to_all``, gathered locally,
-  returned with a second ``all_to_all``, and finally ``all_gather``-ed to
-  replicate. Fixed capacity C = ceil(N/(M·M) · factor); bucket overflow
-  contributes zero vectors and is surfaced via ``lookup_overflow_fraction``
-  — size the factor so overflow never fires in training (capacity metrics
-  are the MoE-standard guard; SURVEY.md §7 "ragged all-to-all").
+  (each shard processes N/M of them), deduplicated, bucketed by owner shard
+  into fixed-capacity buckets, exchanged with ``all_to_all``, gathered
+  locally, returned with a second ``all_to_all``, and finally
+  ``all_gather``-ed to replicate. Fixed capacity C = ceil(N/(M·M) · factor)
+  DISTINCT ids per owner; duplicates (padding id 0 above all, and popular
+  POIs) share one slot, so a padded batch cannot flood shard 0's bucket.
+  Bucket overflow contributes zero vectors and is surfaced via
+  ``lookup_overflow_fraction`` — size the factor so overflow never fires
+  (capacity metrics are the MoE-standard guard; SURVEY.md §7 "ragged
+  all-to-all").
 """
 
 from __future__ import annotations
@@ -31,7 +34,6 @@ from typing import Callable
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from poi_tpu.parallel.mesh import DATA_AXIS, MODEL_AXIS
 from poi_tpu.parallel import collectives as cc
@@ -64,11 +66,11 @@ def make_psum_lookup(mesh: Mesh) -> Callable:
     P('data')) -> [B, T, D] sharded P('data'), replicated over 'model'."""
 
     @functools.partial(
-        shard_map,
+        jax.shard_map,
         mesh=mesh,
         in_specs=(P(MODEL_AXIS, None), P(DATA_AXIS, None)),
         out_specs=P(DATA_AXIS, None, None),
-        check_rep=False,
+        check_vma=False,
     )
     def lookup(table, ids):
         return _psum_lookup_local(table, ids)
@@ -82,19 +84,23 @@ def make_psum_lookup(mesh: Mesh) -> Callable:
 
 
 def _route_by_owner(ids_flat: jax.Array, num_shards: int, rows_per_shard: int, capacity: int):
-    """Bucket ids by owning shard with fixed per-destination capacity.
+    """Bucket the DISTINCT ids by owning shard with fixed per-destination
+    capacity; every occurrence of an id shares its slot.
 
     Returns (send_ids [M, C], slot_of_id (owner [N], rank [N]), overflow [N] bool).
     """
     n = ids_flat.shape[0]
-    owner = jnp.clip(ids_flat // rows_per_shard, 0, num_shards - 1)
-    order = jnp.argsort(owner)  # stable
-    sorted_owner = owner[order]
-    counts = jnp.bincount(owner, length=num_shards)
-    starts = jnp.cumsum(counts) - counts
-    rank_sorted = jnp.arange(n) - starts[sorted_owner]
+    order = jnp.argsort(ids_flat)  # stable; owners are monotone in id
+    s = ids_flat[order]
+    first = jnp.concatenate([jnp.ones((1,), bool), s[1:] != s[:-1]])
+    uniq = jnp.cumsum(first) - 1  # index of each sorted id's distinct value
+    sorted_owner = jnp.clip(s // rows_per_shard, 0, num_shards - 1)
+    counts = jnp.zeros((num_shards,), jnp.int32).at[sorted_owner].add(first.astype(jnp.int32))
+    starts = jnp.cumsum(counts) - counts  # distinct ids owned by lower shards
+    rank_sorted = uniq - starts[sorted_owner]
     # Scatter back to original positions.
     rank = jnp.zeros((n,), jnp.int32).at[order].set(rank_sorted.astype(jnp.int32))
+    owner = jnp.clip(ids_flat // rows_per_shard, 0, num_shards - 1)
     overflow = rank >= capacity
     # Out-of-capacity ranks are out-of-bounds writes → dropped by mode="drop".
     send_ids = jnp.zeros((num_shards, capacity), ids_flat.dtype)
@@ -126,11 +132,11 @@ def make_a2a_lookup(mesh: Mesh, capacity_factor: float = 2.0) -> Callable:
 
     def lookup(table: jax.Array, ids: jax.Array) -> jax.Array:
         @functools.partial(
-            shard_map,
+            jax.shard_map,
             mesh=mesh,
             in_specs=(P(MODEL_AXIS, None), P(DATA_AXIS, None)),
             out_specs=P(DATA_AXIS, None, None),
-            check_rep=False,
+            check_vma=False,
         )
         def inner(table_local, ids_blk):
             flat = ids_blk.reshape(-1)
@@ -162,15 +168,14 @@ def lookup_overflow_fraction(
     """Diagnostic: exact fraction of ids the a2a kernel would drop to bucket
     overflow (capacity metric, logged by obs).
 
-    Computed at the kernel's real granularity (VERDICT r3 Weak #4): the
-    global [B, T] id batch is row-sharded over 'data' into ``data_shards``
-    slices; each slice flattens, pads to a multiple of M, and splits into M
-    contiguous chunks; each chunk is bucketed per owner shard with capacity
-    ``ceil(chunk/M · factor)`` (mirrors ``make_a2a_lookup``/``_route_by_owner``).
-    An aggregate per-owner count would read 0 under cross-slice skew that
-    overflows real buckets — this does not. Pad slots sort after every real
-    id within a chunk (stable routing order), so they never displace real
-    ids and are excluded here.
+    Computed at the kernel's real granularity (VERDICT r3 Weak #4) with the
+    kernel's own routing: the global [B, T] id batch is row-sharded over
+    'data' into ``data_shards`` slices; each slice flattens, pads to a
+    multiple of M exactly as ``make_a2a_lookup`` does, and splits into M
+    contiguous chunks; each chunk goes through ``_route_by_owner`` with
+    capacity ``ceil(chunk/M · factor)``. An aggregate per-owner count would
+    read 0 under cross-slice skew that overflows real buckets — this does
+    not. Pad slots are excluded from the count.
     """
     m = num_shards
     flat = ids.reshape(-1)
@@ -180,16 +185,17 @@ def lookup_overflow_fraction(
     nloc_pad = -(-nloc // m) * m
     chunk = nloc_pad // m
     cap = max(1, int(-(-chunk // m) * capacity_factor))
-    # Slice first (contiguous rows of the [B, T] batch), then pad each
-    # slice's tail — exactly where the kernel's jnp.pad puts them.
-    flat = jnp.concatenate([flat, jnp.full((d * nloc - n,), -1, flat.dtype)])
-    x = flat.reshape(d, nloc)
-    x = jnp.pad(x, ((0, 0), (0, nloc_pad - nloc)), constant_values=-1)
-    x = x.reshape(d, m, chunk)
-    owner = jnp.where(x >= 0, jnp.clip(x // rows_per_shard, 0, m - 1), m)
-    counts = jnp.sum(jax.nn.one_hot(owner, m, dtype=jnp.int32), axis=2)  # [d, M_src, M_owner]
-    over = jnp.maximum(counts - cap, 0)
-    return jnp.sum(over) / jnp.maximum(n, 1)
+    real = jnp.arange(d * nloc) < n
+    x = jnp.concatenate([flat, jnp.zeros((d * nloc - n,), flat.dtype)]).reshape(d, nloc)
+    real = real.reshape(d, nloc)
+    x = jnp.pad(x, ((0, 0), (0, nloc_pad - nloc)))
+    real = jnp.pad(real, ((0, 0), (0, nloc_pad - nloc)))
+
+    def chunk_overflow(c):
+        return _route_by_owner(c, m, rows_per_shard, cap)[3]
+
+    over = jax.vmap(chunk_overflow)(x.reshape(d * m, chunk)).reshape(d, nloc_pad)
+    return jnp.sum(over & real) / jnp.maximum(n, 1)
 
 
 def make_replicated_lookup(mesh: Mesh) -> Callable:
@@ -197,11 +203,11 @@ def make_replicated_lookup(mesh: Mesh) -> Callable:
     pool): psum over 'model', identical on every device."""
 
     @functools.partial(
-        shard_map,
+        jax.shard_map,
         mesh=mesh,
         in_specs=(P(MODEL_AXIS, None), P()),
         out_specs=P(),
-        check_rep=False,
+        check_vma=False,
     )
     def lookup(table, ids):
         return _psum_lookup_local(table, ids)

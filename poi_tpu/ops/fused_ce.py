@@ -1,18 +1,19 @@
-"""Memory-fused full-softmax cross-entropy (SURVEY.md §2.2 T10 perf path).
+"""Chunked full-softmax cross-entropy in plain XLA (SURVEY.md §2.2 T10).
 
-The textbook CE over a big catalog materializes [B·T, V] logits in HBM three
-times (forward, softmax, backward) — at bench scale that is ~1.5 GB per step
-and dominates the step time. This implementation never materializes more
-than one [B·T, chunk] tile:
+The textbook CE over a big catalog materializes [B·T, V] logits in device
+memory three times (forward, softmax, backward). This implementation never
+materializes more than one [B·T, chunk] tile at a time:
 
 - forward: ``lax.scan`` over vocab chunks with online log-sum-exp (running
   max + rescaled partition sum) and a masked target-logit accumulator;
 - backward (custom VJP): a second scan recomputes each chunk's logits (flash
-  style: trade FLOPs for HBM), forms the chunk's softmax, and accumulates
+  style: trade FLOPs for memory traffic), forms the chunk's softmax, and accumulates
   dq, dtable-chunk, dbias-chunk in place.
 
 Peak extra memory: O(B·T·chunk). FLOPs: 3 matmuls over the catalog — the
-same as the dense path, but now actually matmul-bound.
+same as the dense path. Each [B·T, chunk] tile still makes a round trip
+through device memory; ``ops/online_lse.py`` is the GPU kernel that keeps
+tiles on chip, and ``poi_tpu.backend.ce_impl`` chooses between them.
 
 Numerics: bf16 operands / fp32 accumulation, exact log-sum-exp (two-pass max
 via the online rescale). Property-tested against ``train.losses.ce_loss``
@@ -125,270 +126,5 @@ def fused_ce_loss(q, table, bias, targets, mask, chunk_v: int = 2048) -> jax.Arr
     ``train.losses.ce_loss`` (same signature semantics). XLA-chunked path."""
     B, T, D = q.shape
     nll = fused_ce_rows(q.reshape(B * T, D), table, bias, targets.reshape(-1), chunk_v)
-    m = mask.reshape(-1).astype(jnp.float32)
-    return jnp.sum(nll * m) / jnp.maximum(jnp.sum(m), 1.0)
-
-
-# --------------------------------------------------------------------------- #
-# Pallas path: logit tiles live and die in VMEM.
-#
-# Even the chunked XLA path above spills each [N, chunk] logit tile to HBM
-# (honest-sync: only 1.09x over dense at bench scale). Two Pallas kernels
-# keep every tile in VMEM:
-#   A) forward:  grid (rows, vocab-inner) — online LSE carry in scratch.
-#      The running max/sum live as [Rb, 128] per-LANE accumulators (lane j
-#      tracks vocab columns ≡ j mod 128): the hot loop is pure elementwise
-#      VPU work with NO cross-lane reductions; one cross-lane finish at the
-#      last tile. Measured 1.45x over the cross-lane-reduce version.
-#   B) backward: grid (vocab, rows-inner) — ONE kernel recomputes each logit
-#      tile (flash-style), forms gp = softmax·ḡ once, and feeds both grad
-#      matmuls: dtable/dbias accumulate in scratch (written at rows-last),
-#      dq accumulates *in the output block itself*, which is pinned whole in
-#      VMEM by a constant index map. This saves a full catalog-matmul + exp
-#      recompute vs separate dq/dtable kernels (3 catalog matmuls per
-#      backward instead of 4). Rows are slabbed so the resident dq block
-#      stays within VMEM at any batch size.
-# The target-logit and one-hot gradient terms are cheap gathers handled
-# outside the kernels.
-# --------------------------------------------------------------------------- #
-
-from jax.experimental import pallas as pl  # noqa: E402
-from jax.experimental.pallas import tpu as pltpu  # noqa: E402
-
-# Backward tile shape (independent of the forward's): swept on-chip at bench
-# scale (V=44k, D=128, N=16k) — cv=2048/rb=1024 measures 185 TF/s (94% of
-# v5e bf16 peak) vs 173 at 1024/512 — and fits the 16 MB scoped-VMEM budget
-# alongside the slab-resident dq block (_BWD_MAX_SLAB·D·4B, 4 MB at D=128).
-# N-dependence: each slab re-streams the full table from HBM, so runs with
-# N >> _BWD_MAX_SLAB pay extra table traffic per slab halving — re-sweep the
-# slab size if the bench batch shape grows materially.
-_BWD_CHUNK_V = 2048
-_BWD_ROW_BLOCK = 1024
-_BWD_MAX_SLAB = 8192
-
-
-def _logits_tile(q_ref, t_ref, b_ref):
-    return (
-        jax.lax.dot_general(
-            q_ref[:], t_ref[:],
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        + b_ref[0, :][None, :]
-    )
-
-
-def _lse_kernel(q_ref, t_ref, b_ref, lse_out, m_scr, l_scr):
-    v = pl.program_id(1)
-
-    @pl.when(v == 0)
-    def _():
-        m_scr[:] = jnp.full_like(m_scr, NEG)
-        l_scr[:] = jnp.zeros_like(l_scr)
-
-    logits = _logits_tile(q_ref, t_ref, b_ref)  # [Rb, Vc]
-    groups = logits.shape[1] // 128
-    # Per-lane online LSE: elementwise max/exp/add only — no cross-lane ops.
-    m_old = m_scr[:]
-    m_new = m_old
-    for k in range(groups):
-        m_new = jnp.maximum(m_new, logits[:, k * 128:(k + 1) * 128])
-    l_new = l_scr[:] * jnp.exp(m_old - m_new)
-    for k in range(groups):
-        l_new = l_new + jnp.exp(logits[:, k * 128:(k + 1) * 128] - m_new)
-    m_scr[:] = m_new
-    l_scr[:] = l_new
-
-    @pl.when(v == pl.num_programs(1) - 1)
-    def _():
-        # Cross-lane finish, once per row block.
-        m_fin = jnp.max(m_new, axis=-1, keepdims=True)
-        l_fin = jnp.sum(l_new * jnp.exp(m_new - m_fin), axis=-1, keepdims=True)
-        lse_out[:] = jnp.broadcast_to(jnp.log(l_fin) + m_fin, lse_out.shape)
-
-
-def _bwd_kernel(q_ref, t_ref, b_ref, lse_ref, g_ref, dq_out, dt_out, db_out, acc_t, acc_b):
-    v, r = pl.program_id(0), pl.program_id(1)
-
-    @pl.when((v == 0) & (r == 0))
-    def _():
-        dq_out[:] = jnp.zeros_like(dq_out)
-
-    @pl.when(r == 0)
-    def _():
-        acc_t[:] = jnp.zeros_like(acc_t)
-        acc_b[:] = jnp.zeros_like(acc_b)
-
-    logits = _logits_tile(q_ref, t_ref, b_ref)
-    gp = jnp.exp(logits - lse_ref[:, :1]) * g_ref[:, :1]  # [Rb, Vc]
-    gpb = gp.astype(jnp.bfloat16)
-    rb = q_ref.shape[0]
-    row0 = r * rb
-    # dNLL/dq rows accumulate directly in the VMEM-resident output block.
-    dq_out[pl.ds(row0, rb), :] = dq_out[pl.ds(row0, rb), :] + jnp.dot(
-        gpb, t_ref[:], preferred_element_type=jnp.float32
-    )
-    # dNLL/dE_chunk = gpᵀ @ q ; dNLL/db_chunk = colsum(gp)
-    acc_t[:] = acc_t[:] + jax.lax.dot_general(
-        gpb, q_ref[:],
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    acc_b[:] = acc_b[:] + jnp.sum(gp, axis=0, keepdims=True)
-
-    @pl.when(r == pl.num_programs(1) - 1)
-    def _():
-        dt_out[:] = acc_t[:]
-        db_out[:] = acc_b[:]
-
-
-def _pad_rows(a, rb, fill=0):
-    n = a.shape[0]
-    pad = -(-n // rb) * rb - n
-    if pad:
-        a = jnp.pad(a, ((0, pad),) + ((0, 0),) * (a.ndim - 1), constant_values=fill)
-    return a
-
-
-# Forward tile shape: swept on-chip at bench scale — rb=2048/cv=512 measures
-# 165 TF/s vs 139 at 1024/1024. The forward is part-VPU-bound (|V| exps and
-# running maxes per row); tall row blocks amortize the per-tile VPU work
-# against more MXU work per table load. Removing the online max entirely
-# (unsafe) only reaches 178 TF/s, so the exact-LSE max loop stays.
-@functools.partial(jax.custom_vjp, nondiff_argnums=(4, 5, 6))
-def fused_ce_rows_pallas(q, table, bias, targets, chunk_v=512, row_block=2048, interpret=False):
-    """Pallas fused CE: same contract as ``fused_ce_rows``."""
-    nll, _ = _pallas_forward(q, table, bias, targets, chunk_v, row_block, interpret)
-    return nll
-
-
-def _pallas_lse(q, tc_flat, bias_p, chunk_v, row_block, interpret):
-    n, d = q.shape
-    vp = tc_flat.shape[0]
-    grid = (n // row_block, vp // chunk_v)
-    lse = pl.pallas_call(
-        _lse_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((row_block, d), lambda r, v: (r, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((chunk_v, d), lambda r, v: (v, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, chunk_v), lambda r, v: (0, v), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((row_block, 128), lambda r, v: (r, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n, 128), jnp.float32),
-        scratch_shapes=[
-            pltpu.VMEM((row_block, 128), jnp.float32),
-            pltpu.VMEM((row_block, 128), jnp.float32),
-        ],
-        interpret=interpret,
-    )(q.astype(jnp.bfloat16), tc_flat, bias_p.reshape(1, vp))
-    return lse[:, 0]
-
-
-def _pallas_forward(q, table, bias, targets, chunk_v, row_block, interpret):
-    n_orig, d = q.shape
-    tc, bc, _, _ = _chunk(table, bias, chunk_v)
-    tc_flat = tc.reshape(-1, d).astype(jnp.bfloat16)
-    bias_p = bc.reshape(-1)
-    qp = _pad_rows(q, row_block)
-    lse = _pallas_lse(qp, tc_flat, bias_p, chunk_v, row_block, interpret)[:n_orig]
-    tgt_logit = (
-        jnp.einsum("nd,nd->n", q, jnp.take(table, targets, axis=0), preferred_element_type=jnp.float32)
-        + bias[targets]
-    )
-    return lse - tgt_logit, lse
-
-
-def _pallas_fwd(q, table, bias, targets, chunk_v, row_block, interpret):
-    nll, lse = _pallas_forward(q, table, bias, targets, chunk_v, row_block, interpret)
-    return nll, (q, table, bias, targets, lse)
-
-
-def _bwd_slab(qp, tc_flat, bias_p, lse128, g128, chunk_v, row_block, interpret):
-    """Fused backward over one row slab; dq block resident whole in VMEM."""
-    n, d = qp.shape
-    vp = tc_flat.shape[0]
-    grid = (vp // chunk_v, n // row_block)
-    return pl.pallas_call(
-        _bwd_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((row_block, d), lambda v, r: (r, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((chunk_v, d), lambda v, r: (v, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, chunk_v), lambda v, r: (0, v), memory_space=pltpu.VMEM),
-            pl.BlockSpec((row_block, 128), lambda v, r: (r, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((row_block, 128), lambda v, r: (r, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((n, d), lambda v, r: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((chunk_v, d), lambda v, r: (v, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, chunk_v), lambda v, r: (0, v), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((n, d), jnp.float32),
-            jax.ShapeDtypeStruct((vp, d), jnp.float32),
-            jax.ShapeDtypeStruct((1, vp), jnp.float32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((chunk_v, d), jnp.float32),
-            pltpu.VMEM((1, chunk_v), jnp.float32),
-        ],
-        interpret=interpret,
-    )(qp, tc_flat, bias_p, lse128, g128)
-
-
-def _pallas_bwd(chunk_v, row_block, interpret, res, g):
-    del chunk_v, row_block  # backward has its own tuned tile shape
-    q, table, bias, targets, lse = res
-    d = q.shape[1]
-    v = table.shape[0]
-    cv = _BWD_CHUNK_V
-    rb = _BWD_ROW_BLOCK
-    tc, bc, _, _ = _chunk(table, bias, cv)
-    tc_flat = tc.reshape(-1, d).astype(jnp.bfloat16)
-    vp = tc_flat.shape[0]
-    bias_p = bc.reshape(1, vp)
-    qp = _pad_rows(q, rb).astype(jnp.bfloat16)
-    n = qp.shape[0]
-    # Padded rows: g=0 makes their contribution vanish in all passes.
-    lse_p = _pad_rows(lse.reshape(-1, 1), rb)
-    g_p = _pad_rows(g.astype(jnp.float32).reshape(-1, 1), rb)
-    lse128 = jnp.broadcast_to(lse_p, (n, 1)) * jnp.ones((1, 128), jnp.float32)
-    g128 = jnp.broadcast_to(g_p, (n, 1)) * jnp.ones((1, 128), jnp.float32)
-
-    # Row slabs keep the VMEM-resident dq output block bounded at any batch.
-    slab = min(n, _BWD_MAX_SLAB)
-    dq_parts, dtable, dbias = [], None, None
-    for s0 in range(0, n, slab):
-        size = min(slab, n - s0)
-        dq_s, dt_s, db_s = _bwd_slab(
-            qp[s0:s0 + size], tc_flat, bias_p,
-            lse128[s0:s0 + size], g128[s0:s0 + size], cv, rb, interpret,
-        )
-        dq_parts.append(dq_s)
-        dtable = dt_s if dtable is None else dtable + dt_s
-        dbias = db_s if dbias is None else dbias + db_s
-    dq = (dq_parts[0] if len(dq_parts) == 1 else jnp.concatenate(dq_parts))[:q.shape[0]]
-    dtable = dtable[:v]
-    dbias = dbias[0, :v]
-
-    gf = g.astype(jnp.float32)
-    dq = dq - gf[:, None] * jnp.take(table, targets, axis=0)
-    dtable = dtable.at[targets].add(-gf[:, None] * q)
-    dbias = dbias.at[targets].add(-gf)
-    return dq, dtable, dbias, None
-
-
-fused_ce_rows_pallas.defvjp(_pallas_fwd, _pallas_bwd)
-
-
-def fused_ce_loss_pallas(
-    q, table, bias, targets, mask, chunk_v: int = 512, row_block: int = 2048, interpret: bool = False
-) -> jax.Array:
-    """Masked-mean Pallas fused CE over [B, T, D] queries."""
-    B, T, D = q.shape
-    nll = fused_ce_rows_pallas(
-        q.reshape(B * T, D), table, bias, targets.reshape(-1), chunk_v, row_block, interpret
-    )
     m = mask.reshape(-1).astype(jnp.float32)
     return jnp.sum(nll * m) / jnp.maximum(jnp.sum(m), 1.0)

@@ -21,12 +21,9 @@ from typing import Callable
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from poi_tpu.parallel import collectives as cc
 from poi_tpu.parallel.mesh import DATA_AXIS, MODEL_AXIS
-
-NEG = -1e30
 
 
 def _sharded_ce_local(
@@ -42,7 +39,7 @@ def _sharded_ce_local(
     lo = shard * rows
 
     # Local logits against owned rows only. Padded catalog rows carry a
-    # NEG bias from init, so they vanish from the partition function.
+    # -1e30 bias from init, so they vanish from the partition function.
     logits = (
         jnp.dot(q.astype(dtype), table_local.astype(dtype).T, preferred_element_type=jnp.float32)
         + bias_local
@@ -103,9 +100,8 @@ def make_sharded_sampled_softmax(
     lookup: Callable,
     num_sampled: int,
     num_pois: int,
-    fused: str = "auto",
+    impl: str = "xla",
     interpret: bool = False,
-    embed_dim: int | None = None,
 ) -> Callable:
     """Sampled softmax over a vocab-sharded table: positives come through the
     data-sharded ``lookup``; the shared negative pool (replicated across the
@@ -113,52 +109,36 @@ def make_sharded_sampled_softmax(
     local to each data shard — no vocab-wide matmul. Matches
     ``train.losses.sampled_softmax_loss`` for the same rng.
 
-    ``fused="auto"`` routes the per-shard NLL through the Pallas kernels of
-    ``ops.fused_sampled`` on TPU backends (each data shard runs the kernel on
-    its own rows under ``shard_map``; the pool is replicated); ``"on"/"off"``
-    force it (``interpret=True`` for CPU-mesh tests). The dense fallback is
-    concat-free: LSE([s_pos|s_neg]) == logaddexp(LSE(s_neg), s_pos).
+    Each data shard reduces its own rows against the replicated pool inside
+    ``shard_map`` with ``train.losses.sampled_nll`` — ``impl`` and
+    ``interpret`` as there ("triton" streams the pool through
+    ops/online_lse.py).
     """
     from poi_tpu.ops.embedding import make_replicated_lookup
+    from poi_tpu.train.losses import draw_sampled_negatives, sampled_nll
 
     rep_lookup = make_replicated_lookup(mesh)
-    # Same backend contract as build_loss_fn's single-device path: the fused
-    # Pallas kernel only runs on non-CPU backends (or in interpret mode for
-    # CPU-mesh tests) — a forced "on" still falls back off-TPU (ADVICE r4).
-    backend_ok = interpret or jax.default_backend() != "cpu"
-    use_fused = backend_ok and (
-        fused == "on"
-        or (
-            fused == "auto"
-            and num_sampled >= 128
-            and (embed_dim is None or embed_dim % 128 == 0)  # lane-aligned queries
-        )
+
+    @functools.partial(
+        jax.shard_map,
+        mesh=mesh,
+        in_specs=(
+            P(DATA_AXIS, None, None),  # q
+            P(),  # e_neg (replicated pool)
+            P(),  # b_neg
+            P(DATA_AXIS, None),  # s_pos
+            P(DATA_AXIS, None),  # targets
+            P(),  # pool ids
+        ),
+        out_specs=P(DATA_AXIS, None),
+        check_vma=False,
     )
-
-    if use_fused:
-        from poi_tpu.ops.fused_sampled import sampled_nll_rows
-
-        @functools.partial(
-            shard_map,
-            mesh=mesh,
-            in_specs=(
-                P(DATA_AXIS, None),  # q2 rows
-                P(),  # e_neg (replicated pool)
-                P(),  # b_neg
-                P(DATA_AXIS),  # s_pos
-                P(DATA_AXIS),  # targets
-                P(),  # pool ids
-            ),
-            out_specs=P(DATA_AXIS),
-            check_rep=False,
+    def _nll(q, e_neg, b_neg, s_pos, targets, neg):
+        return sampled_nll(
+            q, e_neg, b_neg, s_pos, targets, neg, num_sampled, num_pois, impl, interpret
         )
-        def _fused_nll(q2, e_neg, b_neg, s_pos, t1, neg):
-            return sampled_nll_rows(q2, e_neg, b_neg, s_pos, (t1, neg), interpret)
 
     def loss(q, table, bias, targets, mask, rng):
-        B, T = targets.shape
-        from poi_tpu.train.losses import draw_sampled_negatives
-
         neg = draw_sampled_negatives(rng, num_sampled, num_pois)
         bias2d = bias[:, None]
         e_neg = rep_lookup(table, neg)  # [S, D]
@@ -166,28 +146,7 @@ def make_sharded_sampled_softmax(
         b_neg = rep_lookup(bias2d, neg)[:, 0]
         b_pos = lookup(bias2d, targets)[..., 0]
         s_pos = jnp.einsum("btd,btd->bt", q, e_pos, preferred_element_type=jnp.float32) + b_pos
-        if use_fused:
-            nll = _fused_nll(
-                q.reshape(B * T, -1),
-                e_neg,
-                b_neg - jnp.log(num_sampled / num_pois),
-                s_pos.reshape(-1),
-                targets.reshape(-1),
-                neg,
-            ).reshape(B, T)
-        else:
-            s_neg = (
-                jnp.einsum(
-                    "btd,sd->bts",
-                    q.astype(jnp.bfloat16),
-                    e_neg.astype(jnp.bfloat16),
-                    preferred_element_type=jnp.float32,
-                )
-                + b_neg
-            )
-            hit = neg[None, None, :] == targets[..., None]
-            s_neg = jnp.where(hit, NEG, s_neg - jnp.log(num_sampled / num_pois))
-            nll = jnp.logaddexp(jax.nn.logsumexp(s_neg, axis=-1), s_pos) - s_pos
+        nll = _nll(q, e_neg, b_neg, s_pos, targets, neg)
         m = mask.astype(jnp.float32)
         return jnp.sum(nll * m) / jnp.maximum(jnp.sum(m), 1.0)
 
@@ -199,7 +158,7 @@ def make_sharded_ce(mesh: Mesh) -> Callable:
     losses in train/losses.py (rng unused), drop-in for the Trainer."""
 
     @functools.partial(
-        shard_map,
+        jax.shard_map,
         mesh=mesh,
         in_specs=(
             P(DATA_AXIS, None, None),  # q
@@ -209,7 +168,7 @@ def make_sharded_ce(mesh: Mesh) -> Callable:
             P(DATA_AXIS, None),  # mask
         ),
         out_specs=P(),
-        check_rep=False,
+        check_vma=False,
     )
     def _loss(q, table, bias, targets, mask):
         return _sharded_ce_local(q, table, bias, targets, mask)

@@ -1,247 +1,115 @@
-"""Fused full-catalog scoring + top-k Pallas kernel (SURVEY.md §2.2 T9).
+"""Full-catalog scoring + top-k (SURVEY.md §2.2 T9).
 
 Replaces the reference's per-user dense scoring loop (score all POIs, argsort
-in NumPy — SURVEY.md §3.1b) with a single TPU kernel: the [B, D] query block
-streams the [V, D] table through VMEM tile-by-tile, each tile is scored on
-the MXU, and a running top-k candidate set lives in lane-aligned [B, 128]
-VMEM scratch — the [B, V] logit matrix never exists in HBM, so the kernel
-runs at table-streaming speed (the matmul is memory/compute balanced for
-B ≈ 256, D ≈ 256).
+in NumPy — SURVEY.md §3.1b) with one jitted function per batch.
 
-Performance notes (measured on TPU v5e):
-- The vocab grid MUST divide evenly: a ragged final tile disables Mosaic's
-  block pipelining and costs ~10x. ``fused_topk`` therefore requires
-  V % tile_v == 0; ``pad_table_for_topk`` prepares (table, bias) once per
-  eval sweep (padded rows carry -1e30 bias → can never enter the top-k).
-- The merge runs K iterations of (max, argmax, mask-insert) over the
-  concatenated [B, tile_v + 128] candidates, all 128-lane aligned, and is
-  skipped entirely (``@pl.when``) for tiles whose per-row maxima cannot beat
-  any row's current k-th best — after the first few tiles, most tiles skip.
-- Bigger tiles amortize the per-tile fixed work (merge bookkeeping, grid
-  step): tile_v 512 -> 2048 measured 460k -> 650k qps at V=100k, D=256,
-  B=256, k=10 with random scores (worst case); the dense XLA oracle is
-  ~270k qps on the same shapes (robust slope timing, see BASELINE.md).
+``chunked_topk`` scores the catalog with bf16 matrix products (fp32
+accumulation) and ``lax.top_k``. One [B, V] fp32 score tile is used while it
+fits ``SCORE_TILE_BYTES``; beyond that the catalog is walked in chunks under
+``lax.scan``, each chunk's top-k merged into the running [B, k] candidates,
+so memory stays bounded whatever the catalog size. On the H100 one
+whole-catalog pass was the fastest at V = 1M, B = 512 (a 2 GB tile; chunks
+of 32k rows took about twice as long — PERF.md), hence the large budget.
+Ties resolve to the lower catalog id, as ``lax.top_k`` does on the whole
+row: the running candidates, which come from earlier chunks, are placed
+first in every merge.
 
-The XLA fallback (``xla_topk``) is the correctness oracle — property-tested
-equal, benchmarked in bench.py.
+``xla_topk`` scores the whole catalog at once and is the correctness
+oracle. ``make_sharded_topk`` runs the chunked top-k on each vocab shard and
+merges the shards' candidates.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 NEG = -1e30
-_SCR = 128  # lane-aligned scratch width; k <= _SCR
+# Largest [B, chunk] fp32 score tile held at once.
+SCORE_TILE_BYTES = 2**31
 
 
-def pad_table_for_topk(table: jax.Array, bias: jax.Array, tile_v: int = 2048):
-    """Pad (table, bias) rows to a multiple of tile_v. Do this ONCE per eval
-    sweep, outside the per-batch jit — padding inside the hot call would
-    re-copy the table every batch."""
-    v = table.shape[0]
-    v_pad = -(-v // tile_v) * tile_v
-    if v_pad == v:
-        return table, bias
-    table = jnp.pad(table, ((0, v_pad - v), (0, 0)))
-    bias = jnp.pad(bias, (0, v_pad - v), constant_values=NEG)
-    return table, bias
+def chunk_rows(batch: int, k: int) -> int:
+    """Catalog rows scored per chunk for ``batch`` queries."""
+    return max(k, SCORE_TILE_BYTES // (4 * max(batch, 1)))
 
 
-BIG = 2**30  # sentinel column index (Python int: jnp constants can't be captured by kernels)
-
-
-def _fused_topk_kernel(
-    q_ref,  # [B, D] VMEM (same block every step)
-    table_ref,  # [tile_v, D] VMEM (current vocab tile)
-    bias_ref,  # [1, tile_v] VMEM
-    vals_out,  # [B, _SCR] VMEM output (top-k in lanes [0, k))
-    ids_out,  # [B, _SCR] VMEM output
-    vals_scr,  # [B, _SCR] VMEM running top-k values (desc-sorted, NEG-padded)
-    ids_scr,  # [B, _SCR] VMEM running ids
-    score_scr,  # [B, tile_v] VMEM tile scores (mutated during the merge)
-    *,
-    k: int,
-    tile_v: int,
-):
-    step = pl.program_id(0)
-    nsteps = pl.num_programs(0)
-    B = vals_scr.shape[0]
-
-    @pl.when(step == 0)
-    def _init():
-        vals_scr[:] = jnp.full_like(vals_scr, NEG)
-        ids_scr[:] = jnp.zeros_like(ids_scr)
-
-    # Score this tile on the MXU (bf16 operands, fp32 accumulate).
-    scores = (
-        jax.lax.dot_general(
-            q_ref[:],
-            table_ref[:],
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        + bias_ref[0, :][None, :]
-    )  # [B, tile_v]
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (B, _SCR), 1)
-    col_iota = step * tile_v + jax.lax.broadcasted_iota(jnp.int32, (B, tile_v), 1)
-
-    def kth_vals():
-        return jnp.min(jnp.where(lane < k, vals_scr[:], jnp.inf), axis=-1)  # [B]
-
-    tile_max = jnp.max(scores, axis=-1)
-    needed = jnp.any(tile_max > kth_vals())
-
-    # Insert-one-per-row loop: each pass extracts every row's current tile
-    # max and (for rows that improve) inserts it into that row's sorted
-    # running list. Rows whose max can't beat their k-th best are done with
-    # this tile forever (maxima only decrease), so the loop exits as soon as
-    # no row improves — after the first few vocab tiles the common case is
-    # needed=False or a single pass.
-    @pl.when(needed)
-    def _merge():
-        score_scr[:] = scores
-
-        def body(carry):
-            it, _ = carry
-            s = score_scr[:]
-            m = jnp.max(s, axis=-1)  # [B] per-row tile max
-            # First-occurrence column of the max (no gather on TPU).
-            at_m = s == m[:, None]
-            idx = jnp.min(jnp.where(at_m, col_iota, BIG), axis=-1)  # [B]
-            sel = col_iota == idx[:, None]
-            new_id = jnp.sum(jnp.where(sel, col_iota, 0), axis=-1)  # [B]
-            kth = kth_vals()
-            ins = m > kth  # [B] rows that improve
-            # Sorted insert into (vals_scr, ids_scr) for improving rows.
-            pos = jnp.sum(vals_scr[:] >= m[:, None], axis=-1)  # [B]
-            sh_v = pltpu.roll(vals_scr[:], 1, 1)
-            sh_i = pltpu.roll(ids_scr[:], 1, 1)
-            up_v = jnp.where(lane < pos[:, None], vals_scr[:], jnp.where(lane == pos[:, None], m[:, None], sh_v))
-            up_i = jnp.where(lane < pos[:, None], ids_scr[:], jnp.where(lane == pos[:, None], new_id[:, None], sh_i))
-            vals_scr[:] = jnp.where(ins[:, None], up_v, vals_scr[:])
-            ids_scr[:] = jnp.where(ins[:, None], up_i, ids_scr[:])
-            # Consume the inserted (or unbeatable) max from the tile.
-            score_scr[:] = jnp.where(sel, NEG, s)
-            cont = jnp.any((jnp.max(score_scr[:], axis=-1) > kth_vals()))
-            return it + 1, cont
-
-        jax.lax.while_loop(
-            lambda c: (c[0] < k) & c[1],
-            body,
-            (jnp.int32(0), jnp.bool_(True)),
-        )
-
-    @pl.when(step == nsteps - 1)
-    def _finalize():
-        vals_out[:] = vals_scr[:]
-        ids_out[:] = ids_scr[:]
-
-
-@functools.partial(jax.jit, static_argnames=("k", "tile_v", "interpret"))
-def fused_topk(
-    q: jax.Array,  # [B, D] queries (cast to bf16 internally)
-    table: jax.Array,  # [V, D]; V must be a multiple of tile_v
-    bias: jax.Array,  # [V]
-    k: int,
-    tile_v: int = 2048,
-    interpret: bool | None = None,
-) -> tuple[jax.Array, jax.Array]:
-    """Returns (values [B, k] fp32 desc-sorted, ids [B, k] int32).
-
-    ``interpret=None`` auto-selects: compiled Mosaic on TPU, Pallas interpret
-    mode elsewhere (the CPU fake-device meshes used in tests).
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    B, D = q.shape
-    V = table.shape[0]
-    if V % tile_v != 0:
-        raise ValueError(
-            f"V={V} must be a multiple of tile_v={tile_v}; use pad_table_for_topk "
-            "(a ragged final tile would silently disable Mosaic pipelining)"
-        )
-    if k > _SCR:
-        raise ValueError(f"k={k} > {_SCR} not supported")
-    nsteps = V // tile_v
-    kernel = functools.partial(_fused_topk_kernel, k=k, tile_v=tile_v)
-    vals, ids = pl.pallas_call(
-        kernel,
-        grid=(nsteps,),
-        in_specs=[
-            pl.BlockSpec((B, D), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_v, D), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile_v), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((B, _SCR), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, _SCR), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((B, _SCR), jnp.float32),
-            jax.ShapeDtypeStruct((B, _SCR), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((B, _SCR), jnp.float32),
-            pltpu.VMEM((B, _SCR), jnp.int32),
-            pltpu.VMEM((B, tile_v), jnp.float32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=2 * B * V * D,
-            bytes_accessed=V * D * 2 + B * D * 2 + V * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(q.astype(jnp.bfloat16), table.astype(jnp.bfloat16), bias.reshape(1, V))
-    return vals[:, :k], ids[:, :k]
-
-
-def xla_topk(q: jax.Array, table: jax.Array, bias: jax.Array, k: int) -> tuple[jax.Array, jax.Array]:
-    """Correctness oracle: dense logits + lax.top_k."""
-    scores = (
+def _scores(q: jax.Array, table: jax.Array, bias: jax.Array) -> jax.Array:
+    return (
         jnp.dot(q.astype(jnp.bfloat16), table.astype(jnp.bfloat16).T, preferred_element_type=jnp.float32)
         + bias
     )
-    return jax.lax.top_k(scores, k)
 
 
-def make_sharded_topk(mesh, k: int, impl: str = "xla", tile_v: int = 2048, interpret: bool | None = None):
+def xla_topk(q: jax.Array, table: jax.Array, bias: jax.Array, k: int) -> tuple[jax.Array, jax.Array]:
+    """Correctness oracle: dense [B, V] scores + lax.top_k."""
+    return jax.lax.top_k(_scores(q, table, bias), k)
+
+
+def _merge(vals, ids, new_vals, new_ids, k):
+    v, pos = jax.lax.top_k(jnp.concatenate([vals, new_vals], axis=1), k)
+    return v, jnp.take_along_axis(jnp.concatenate([ids, new_ids], axis=1), pos, axis=1)
+
+
+def chunked_topk(
+    q: jax.Array,  # [B, D]
+    table: jax.Array,  # [V, D]
+    bias: jax.Array,  # [V]
+    k: int,
+    chunk: int | None = None,
+) -> tuple[jax.Array, jax.Array]:
+    """(values [B, k] fp32 descending, ids [B, k] int32): the same result as
+    ``xla_topk`` with at most one [B, chunk] score tile alive (``chunk``
+    defaults to ``chunk_rows``)."""
+    v = table.shape[0]
+    chunk = max(chunk or chunk_rows(q.shape[0], k), k)
+    if v <= chunk:
+        return xla_topk(q, table, bias, k)
+    n_full = v // chunk
+
+    def chunk_topk(start):
+        t = jax.lax.dynamic_slice_in_dim(table, start, chunk)
+        b = jax.lax.dynamic_slice_in_dim(bias, start, chunk)
+        cv, ci = jax.lax.top_k(_scores(q, t, b), k)
+        return cv, ci + start
+
+    def body(carry, i):
+        return _merge(*carry, *chunk_topk(i * chunk), k), None
+
+    (vals, ids), _ = jax.lax.scan(body, chunk_topk(0), jnp.arange(1, n_full))
+    tail = n_full * chunk
+    if tail < v:
+        kt = min(k, v - tail)
+        cv, ci = xla_topk(q, table[tail:], bias[tail:], kt)
+        vals, ids = _merge(vals, ids, cv, ci + tail, k)
+    return vals, ids
+
+
+def make_sharded_topk(mesh, k: int, chunk: int | None = None):
     """Top-k over a vocab-sharded catalog (SURVEY.md §2.2 T9, eval side).
 
     Each 'model' shard scores its [V/M, D] rows and takes a LOCAL top-k
     (k per shard >= global k guarantees correctness of the merge), then the
     k·M candidates are all-gathered and reduced with a final top-k. Returns
     (values [B, k], global ids [B, k]); batch stays sharded over 'data'.
-
-    ``impl='pallas'`` uses the fused kernel per shard — the per-shard row
-    count must then be a multiple of tile_v (pad the catalog accordingly).
     """
-    import functools as _ft
+    import functools
 
-    from jax.experimental.shard_map import shard_map
     from jax.sharding import PartitionSpec as P
 
     from poi_tpu.parallel import collectives as cc
     from poi_tpu.parallel.mesh import DATA_AXIS, MODEL_AXIS
 
-    @_ft.partial(
-        shard_map,
+    @functools.partial(
+        jax.shard_map,
         mesh=mesh,
         in_specs=(P(DATA_AXIS, None), P(MODEL_AXIS, None), P(MODEL_AXIS)),
         out_specs=(P(DATA_AXIS, None), P(DATA_AXIS, None)),
-        check_rep=False,
+        check_vma=False,
     )
     def topk(q_blk, t_blk, b_blk):
         rows = t_blk.shape[0]
-        if impl == "pallas":
-            vals, ids = fused_topk(q_blk, t_blk, b_blk, k, tile_v=tile_v, interpret=interpret)
-        else:
-            vals, ids = xla_topk(q_blk, t_blk, b_blk, k)
+        vals, ids = chunked_topk(q_blk, t_blk, b_blk, min(k, rows), chunk)
         ids = ids + cc.axis_index(MODEL_AXIS) * rows
         vals_all = cc.all_gather(vals, MODEL_AXIS, gather_axis=1)  # [b, M*k]
         ids_all = cc.all_gather(ids, MODEL_AXIS, gather_axis=1)

@@ -1,10 +1,10 @@
 """The communication backend (SURVEY.md §2.2 T8).
 
-XLA collectives over ICI/DCN are the ENTIRE comms layer — there is no
-NCCL/MPI/Gloo anywhere in this framework. Every cross-chip exchange goes
-through one of the primitives below, issued inside ``shard_map`` so program
-order is identical on every device (SPMD-by-construction deadlock freedom,
-SURVEY.md §5 "Race detection").
+XLA collectives are the ENTIRE comms layer (on the GPU XLA hands them to
+NCCL; on the CPU test mesh they run in-process or over gloo). Every
+cross-device exchange goes through one of the primitives below, issued
+inside ``jax.shard_map`` so program order is identical on every device
+(SPMD-by-construction deadlock freedom, SURVEY.md §5 "Race detection").
 
 Usage map:
 - ``psum``           gradients over 'data'; softmax partition functions and

@@ -8,7 +8,7 @@ the 'model' mesh axis (SP borrows the model axis — batch stays sharded over
 - **ring**: each device keeps its local KV block; blocks rotate around the
   'model' ring via ``ppermute`` while queries stay put, accumulating with the
   online-softmax update shared with ``ops.attention.blockwise_attention``.
-  Comm per step = [B, 2, H, T/M, Dh] on ICI, fully overlappable with the
+  Comm per step = [B, 2, H, T/M, Dh] between cards, overlappable with the
   partial-attention matmuls.
 
 - **ulysses**: one ``all_to_all`` resharding (seq-sharded → head-sharded),
@@ -25,7 +25,6 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental.shard_map import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from poi_tpu.ops.attention import NEG_INF, _online_block_update, blockwise_attention
@@ -94,11 +93,11 @@ def make_sp_attention(mesh: Mesh, num_heads: int, window: int, impl: str, block_
         raise ValueError(f"unknown SP attention impl {impl!r}")
 
     @functools.partial(
-        shard_map,
+        jax.shard_map,
         mesh=mesh,
         in_specs=(P(DATA_AXIS, MODEL_AXIS, None), P(None, None)),
         out_specs=P(DATA_AXIS, MODEL_AXIS, None),
-        check_rep=False,
+        check_vma=False,
     )
     def mha_sharded(x, wqkvo):
         wq, wk, wv, wo = wqkvo

@@ -11,7 +11,6 @@ plug in through the model's ``lookup`` and the loss builder.
 from __future__ import annotations
 
 import logging
-import os
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable
@@ -21,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
+from poi_tpu import backend
 from poi_tpu.data.dataset import Dataset
 from poi_tpu.data.pipeline import Batch, make_train_loader
 from poi_tpu.models import base as model_base
@@ -32,10 +32,6 @@ from poi_tpu.utils.config import Config
 
 log = logging.getLogger(__name__)
 
-# Debug escape hatch: POI_TPU_NO_DONATE=1 disables train-step buffer donation
-# (donate_argnums). Used to isolate donation/aliasing interactions with the
-# Pallas custom calls on remote backends.
-_DONATE = os.environ.get("POI_TPU_NO_DONATE", "0") != "1"
 
 
 class FaultInjected(RuntimeError):
@@ -86,7 +82,6 @@ class Trainer:
                     self.cfg.model.attn_block_size,
                 )
             else:
-                # Mirror the fused-cell fallback's visibility (models/base.py):
                 # SP attention needs a model axis to shard the sequence over.
                 log.info(
                     "model.attn_impl=%r requested but mesh model axis is 1; "
@@ -108,13 +103,12 @@ class Trainer:
                 elif kind == "sampled_softmax":
                     loss_fn = sharded_loss.make_sharded_sampled_softmax(
                         self.mesh, lookup, self.cfg.loss.num_sampled, self.dims.num_pois,
-                        embed_dim=self.cfg.model.embed_dim,
-                        fused={"auto": "auto", "fused": "on", "xla": "off"}[
-                            self.cfg.loss.impl
-                        ],
+                        impl=backend.sampled_impl(
+                            self.cfg.loss.num_sampled, self.cfg.model.embed_dim
+                        ),
                     )
             if loss_fn is None:
-                loss_fn = build_loss_fn(self.cfg.loss, self.dims.num_pois, self.cfg.model.embed_dim)
+                loss_fn = build_loss_fn(self.cfg.loss, self.dims.num_pois)
         self.loss_fn = loss_fn
         if self.cfg.train.table_update == "sparse":
             from poi_tpu.train.sparse_opt import SparseTableOptimizer
@@ -153,21 +147,14 @@ class Trainer:
         # Rows-gradient mode (the full VERDICT r4 Next #1 treatment): with a
         # tied-table sampled-softmax objective on an unsharded vocab, the
         # step differentiates w.r.t. the GATHERED table rows instead of the
-        # table — the dense [V, D] cotangent (zeros + scatter-add, measured
-        # ~11 ms alone at V=1M via scripts/profile_1m.py) never exists.
+        # table — the dense [V, D] cotangent (zeros + scatter-add over the
+        # whole table) never exists.
         # Other sparse configs (bpr, vocab-sharded, untied) keep dense
         # gradients and only the optimizer reads/writes turn sparse.
         from poi_tpu.train import sparse_opt as _sparse_opt
 
         use_rows = _sparse_opt.rows_mode_enabled(cfg, self.dims, n_model)
-        # Same fused-kernel dispatch contract as build_loss_fn.
-        _shapes_ok = cfg.loss.num_sampled >= 128 and cfg.model.embed_dim % 128 == 0
-        rows_fused = (
-            use_rows
-            and jax.default_backend() != "cpu"
-            and cfg.loss.impl != "xla"
-            and (_shapes_ok or cfg.loss.impl == "fused")
-        )
+        sampled_impl = backend.sampled_impl(cfg.loss.num_sampled, cfg.model.embed_dim)
 
         def step_fn(state: TrainState, batch: Batch):
             rng = jax.random.fold_in(state.rng, state.step)
@@ -185,7 +172,7 @@ class Trainer:
             grad_norm_free = None  # exact global grad norm, when free
             if use_rows:
                 loss, params, opt_state, grad_norm_free = self._rows_step(
-                    state, batch, rng, rng_drop, rows_fused
+                    state, batch, rng, rng_drop, sampled_impl
                 )
             elif use_sparse:
                 from poi_tpu.train.sparse_opt import touched_ids
@@ -202,11 +189,10 @@ class Trainer:
             from poi_tpu.train.state import lr_schedule
 
             # The two global norms are observability-only and cost two full
-            # param+grad tree reductions (~0.3 ms/step at bench scale, ~4% of
-            # the step). Every consumer (history rows, the log line) reads
-            # them only on steps where (step+1) % log_every == 0, so they are
-            # computed exactly there and reported 0.0 elsewhere (profiled:
-            # VERDICT r3 Next #3). The sparse paths compute the grad norm for
+            # param+grad tree reductions. Every consumer (history rows, the
+            # log line) reads them only on steps where
+            # (step+1) % log_every == 0, so they are computed exactly there
+            # and reported 0.0 elsewhere (VERDICT r3 Next #3). The sparse paths compute the grad norm for
             # clipping anyway, so it is reported on every step there.
             # The final history row also reports norms even when num_steps is
             # not a multiple of log_every (ADVICE r4: it logged grad 0.000).
@@ -253,7 +239,7 @@ class Trainer:
             metric_keys["a2a_overflow"] = 0.0
         return step_fn, metric_keys
 
-    def _rows_step(self, state: TrainState, batch: Batch, rng, rng_drop, fused: bool):
+    def _rows_step(self, state: TrainState, batch: Batch, rng, rng_drop, impl: str):
         """One rows-gradient train step body (traced inside step_fn).
 
         Gathers every POI-table row the step can touch — inputs, targets,
@@ -264,7 +250,7 @@ class Trainer:
         the dense scatter-add would have (identical updates to the
         dense-grad sparse path — parity-tested in tests/test_sparse_opt.py).
         """
-        from poi_tpu.train.losses import draw_sampled_negatives, sampled_nll_xla
+        from poi_tpu.train.losses import draw_sampled_negatives, sampled_nll
 
         cfg, model = self.cfg, self.model
         B, T = batch.poi_tgt.shape
@@ -284,7 +270,6 @@ class Trainer:
                 if k == "embed" else v)
             for k, v in state.params.items()
         }
-        logq = jnp.log(S / V)
 
         def compute_loss(rest_p, rows, brows):
             x_rows = rows[:BT].reshape(B, T, -1)
@@ -297,15 +282,7 @@ class Trainer:
                 jnp.einsum("btd,btd->bt", q, e_pos, preferred_element_type=jnp.float32)
                 + b_pos
             )
-            if fused:
-                from poi_tpu.ops.fused_sampled import sampled_nll_rows
-
-                nll = sampled_nll_rows(
-                    q.reshape(BT, -1), e_neg, b_neg - logq, s_pos.reshape(-1),
-                    (batch.poi_tgt.reshape(-1), neg),
-                ).reshape(B, T)
-            else:
-                nll = sampled_nll_xla(q, e_neg, b_neg, s_pos, batch.poi_tgt, neg, S, V)
+            nll = sampled_nll(q, e_neg, b_neg, s_pos, batch.poi_tgt, neg, S, V, impl)
             m = batch.mask.astype(jnp.float32)
             return jnp.sum(nll * m) / jnp.maximum(jnp.sum(m), 1.0)
 
@@ -327,10 +304,9 @@ class Trainer:
 
     def _build_step(self, example_batch: Batch, num_steps: int = 1):
         """jit'd train step. ``num_steps > 1`` scans over a leading stack of
-        batches inside ONE dispatch — host→device dispatch latency (the
-        dominant non-compute cost on remote/tunneled TPU hosts, and a real
-        cost anywhere) is amortized 1/num_steps. Metrics come back stacked
-        [num_steps] so per-step logging is preserved."""
+        batches inside ONE dispatch — host→device dispatch latency is
+        amortized 1/num_steps. Metrics come back stacked [num_steps] so
+        per-step logging is preserved."""
         step_fn, metric_keys = self._step_core()
 
         # Shardings: derive from an abstract state + the example batch.
@@ -343,7 +319,7 @@ class Trainer:
                 step_fn,
                 in_shardings=(st_shard, b_shard),
                 out_shardings=(st_shard, m_shard),
-                donate_argnums=(0,) if _DONATE else (),
+                donate_argnums=(0,),
             )
 
         def chunk_fn(state: TrainState, batches: Batch):
@@ -364,7 +340,7 @@ class Trainer:
             chunk_fn,
             in_shardings=(st_shard, bs_stacked),
             out_shardings=(st_shard, ms_stacked),
-            donate_argnums=(0,) if _DONATE else (),
+            donate_argnums=(0,),
         )
 
     def _put_batch(self, batch: Batch, stacked: bool = False):
@@ -411,7 +387,7 @@ class Trainer:
             chunk_fn,
             in_shardings=(st_shard,),
             out_shardings=(st_shard, ms),
-            donate_argnums=(0,) if _DONATE else (),
+            donate_argnums=(0,),
         )
 
     def step_sampled(self, state: TrainState, num_steps: int):
@@ -523,8 +499,7 @@ def _train_sampled(cfg, trainer, state, start_step, num_steps, callbacks):
         if bounds:
             # float() is the device fence: it must happen BEFORE the window
             # is timed, or the rate measures dispatch speed, not execution
-            # (the host runs ahead of the device through the async queue —
-            # measured 8x inflation on the config-#5 host-loader path).
+            # (the host runs ahead of the device through the async queue).
             rows_v = [
                 {m: float(v[j - 1]) for m, v in metrics_k.items()} for j in bounds
             ]
@@ -635,11 +610,10 @@ def train(
     fault_active = start_step <= fault < end
     # Device prefetch: a worker thread assembles AND ships batches ahead so
     # host work overlaps device compute. Off during the fault-injection drill
-    # (the drill needs exact step-by-step control, not throughput) and on the
-    # CPU backend (no transfer to hide, and concurrent device_put from a
-    # second thread can deadlock the CPU client against the running step).
+    # (the drill needs exact step-by-step control, not throughput) and where
+    # the backend module says there is no transfer to hide.
     feed = None
-    if not fault_active and jax.default_backend() != "cpu":
+    if not fault_active and backend.prefetch_to_device():
         from poi_tpu.data.pipeline import DevicePrefetcher
 
         if spc > 1:

@@ -13,8 +13,7 @@ these.
 
 All losses take ``q`` [B, T, D] query vectors, the output table ``table``
 [V, D] + ``bias`` [V], and reduce with the validity ``mask`` [B, T]; logits
-are computed in bf16 inputs with fp32 accumulation (MXU-native) and
-softmaxed in fp32.
+are computed in bf16 inputs with fp32 accumulation and softmaxed in fp32.
 """
 
 from __future__ import annotations
@@ -25,6 +24,8 @@ import jax
 import jax.numpy as jnp
 
 from poi_tpu.utils.config import LossConfig
+
+NEG = -1e30
 
 
 def _masked_mean(x: jax.Array, mask: jax.Array) -> jax.Array:
@@ -106,6 +107,8 @@ def sampled_softmax_loss(
     rng: jax.Array,
     num_sampled: int,
     num_pois: int,
+    impl: str = "xla",
+    interpret: bool = False,
 ) -> jax.Array:
     """Sampled softmax with a shared negative pool per batch (reference R7
     objective — BASELINE.json:10).
@@ -114,16 +117,18 @@ def sampled_softmax_loss(
     (subtract log expected-count) is applied to negative logits so the
     sampled objective is a consistent estimator of full softmax CE.
     Accidental hits (a negative equal to the row's positive) are masked.
+    ``impl`` picks how the [rows, S] negative logits are reduced (see
+    ``sampled_nll``); every choice sees the same PRNG draw.
     """
     neg = draw_sampled_negatives(rng, num_sampled, num_pois)  # shared pool
     e_neg = jnp.take(table, neg, axis=0)  # [S, D]
     e_pos = jnp.take(table, targets, axis=0)  # [B, T, D]
     s_pos = jnp.einsum("btd,btd->bt", q, e_pos, preferred_element_type=jnp.float32) + bias[targets]
-    nll = sampled_nll_xla(q, e_neg, bias[neg], s_pos, targets, neg, num_sampled, num_pois)
+    nll = sampled_nll(q, e_neg, bias[neg], s_pos, targets, neg, num_sampled, num_pois, impl, interpret)
     return _masked_mean(nll, mask)
 
 
-def sampled_nll_xla(
+def sampled_nll(
     q: jax.Array,  # [B, T, D]
     e_neg: jax.Array,  # [S, D]
     b_neg: jax.Array,  # [S] raw negative biases (logQ applied here)
@@ -132,75 +137,93 @@ def sampled_nll_xla(
     neg: jax.Array,  # [S]
     num_sampled: int,
     num_pois: int,
+    impl: str = "xla",
+    interpret: bool = False,
 ) -> jax.Array:
     """[B, T] per-position sampled-softmax NLL from pre-gathered rows — the
-    XLA counterpart of ``ops.fused_sampled.sampled_nll_rows`` and the shared
-    core of ``sampled_softmax_loss`` and the rows-gradient train step
-    (train/loop.py sparse mode).
+    shared core of ``sampled_softmax_loss``, its vocab-sharded twin and the
+    rows-gradient train step (train/loop.py sparse mode).
 
     logQ correction: uniform sampling w/ replacement, E[count_j] = S/V.
-    Accidental hits (negative == row's positive) are masked in the same
-    fused elementwise pass. The combined log-sum-exp is computed as
-    logaddexp(LSE(s_neg), s_pos) — identical to LSE([s_pos | s_neg]) but
-    without materializing the [B, T, 1+S] concatenation (134 MB at config
-    #4's B=256: the concat copy and its backward were pure HBM traffic).
+    Accidental hits (negative == row's positive) are masked. The combined
+    log-sum-exp is computed as logaddexp(LSE(s_neg), s_pos) — identical to
+    LSE([s_pos | s_neg]) but without materializing the [B, T, 1+S]
+    concatenation.
+
+    ``impl="xla"`` forms the [B, T, S] negative logits; ``impl="triton"``
+    streams the pool through ``ops.online_lse`` and never stores them
+    (``interpret`` runs that kernel in Pallas interpret mode, for tests).
     """
-    s_neg = (
+    b_neg = b_neg - jnp.log(num_sampled / num_pois)
+    if impl == "triton":
+        from poi_tpu.ops.online_lse import online_lse
+
+        B, T, D = q.shape
+        lse_neg = online_lse(
+            q.reshape(B * T, D), e_neg, b_neg, targets.reshape(-1), neg, interpret
+        ).reshape(B, T)
+    elif impl == "xla":
+        s_neg = (
+            jnp.einsum(
+                "btd,sd->bts",
+                q.astype(jnp.bfloat16),
+                e_neg.astype(jnp.bfloat16),
+                preferred_element_type=jnp.float32,
+            )
+            + b_neg
+        )
+        hit = neg[None, None, :] == targets[..., None]
+        lse_neg = jax.nn.logsumexp(jnp.where(hit, NEG, s_neg), axis=-1)
+    else:
+        raise ValueError(f"unknown sampled-softmax impl {impl!r}")
+    return jnp.logaddexp(lse_neg, s_pos) - s_pos
+
+
+def streamed_ce_loss(q, table, bias, targets, mask, interpret: bool = False) -> jax.Array:
+    """Full-catalog CE through the streamed kernel (ops/online_lse.py): the
+    same value as ``ce_loss`` without the [B, T, V] logits."""
+    from poi_tpu.ops.online_lse import online_lse
+
+    B, T, D = q.shape
+    q2 = q.reshape(B * T, D)
+    y = targets.reshape(-1)
+    tgt_logit = (
         jnp.einsum(
-            "btd,sd->bts",
-            q.astype(jnp.bfloat16),
-            e_neg.astype(jnp.bfloat16),
+            "nd,nd->n",
+            q2.astype(jnp.bfloat16),
+            jnp.take(table, y, axis=0).astype(jnp.bfloat16),
             preferred_element_type=jnp.float32,
         )
-        + b_neg
+        + bias[y]
     )
-    hit = neg[None, None, :] == targets[..., None]
-    s_neg = jnp.where(hit, -1e30, s_neg - jnp.log(num_sampled / num_pois))
-    return jnp.logaddexp(jax.nn.logsumexp(s_neg, axis=-1), s_pos) - s_pos
+    nll = online_lse(q2, table, bias, interpret=interpret) - tgt_logit
+    return _masked_mean(nll, mask.reshape(-1))
 
 
-# Catalogs below this size don't benefit from chunking — dense CE is fine.
-_FUSED_CE_MIN_VOCAB = 8192
+def build_loss_fn(cfg: LossConfig, num_pois: int) -> Callable:
+    """Returns loss(q, table, bias, targets, mask, rng) -> scalar, with the
+    implementation chosen by ``poi_tpu.backend`` from platform and shape."""
+    from poi_tpu import backend
 
-
-def build_loss_fn(cfg: LossConfig, num_pois: int, embed_dim: int | None = None) -> Callable:
-    """Returns loss(q, table, bias, targets, mask, rng) -> scalar.
-
-    Large-catalog CE dispatches to the fused (never-materialize-logits)
-    implementation: the Pallas kernel on TPU (ops/fused_ce.py — measured
-    2.7x over dense at bench scale), the XLA-chunked custom-VJP elsewhere.
-    """
+    # The choice is made when the loss is traced, from the query width.
     if cfg.kind == "ce":
-        if (
-            cfg.impl != "xla"
-            and num_pois >= _FUSED_CE_MIN_VOCAB
-            and cfg.label_smoothing == 0.0
-        ):
-            import jax as _jax
 
-            if _jax.default_backend() != "cpu":
-                from poi_tpu.ops.fused_ce import fused_ce_loss_pallas
+        def ce(q, t, b, y, m, rng):
+            impl = backend.ce_impl(num_pois, q.shape[-1], cfg.label_smoothing)
+            if impl == "triton":
+                return streamed_ce_loss(q, t, b, y, m)
+            if impl == "chunked":
+                from poi_tpu.ops.fused_ce import fused_ce_loss
 
-                return lambda q, t, b, y, m, rng: fused_ce_loss_pallas(q, t, b, y, m)
-            from poi_tpu.ops.fused_ce import fused_ce_loss
+                return fused_ce_loss(q, t, b, y, m)
+            return ce_loss(q, t, b, y, m, cfg.label_smoothing)
 
-            return lambda q, t, b, y, m, rng: fused_ce_loss(q, t, b, y, m)
-        return lambda q, t, b, y, m, rng: ce_loss(q, t, b, y, m, cfg.label_smoothing)
+        return ce
     if cfg.kind == "bpr":
         return lambda q, t, b, y, m, rng: bpr_loss(q, t, b, y, m, rng, cfg.num_negatives, num_pois)
     if cfg.kind == "sampled_softmax":
-        import jax as _jax
-
-        # Fused path needs lane-aligned queries (D % 128); S >= 128 keeps the
-        # kernel grid non-degenerate. Everything else stays on the XLA path.
-        shapes_ok = cfg.num_sampled >= 128 and (embed_dim is None or embed_dim % 128 == 0)
-        if cfg.impl != "xla" and _jax.default_backend() != "cpu" and (
-            shapes_ok or cfg.impl == "fused"
-        ):
-            from poi_tpu.ops.fused_sampled import fused_sampled_softmax_loss
-
-            return lambda q, t, b, y, m, rng: fused_sampled_softmax_loss(
-                q, t, b, y, m, rng, cfg.num_sampled, num_pois
-            )
-        return lambda q, t, b, y, m, rng: sampled_softmax_loss(q, t, b, y, m, rng, cfg.num_sampled, num_pois)
+        return lambda q, t, b, y, m, rng: sampled_softmax_loss(
+            q, t, b, y, m, rng, cfg.num_sampled, num_pois,
+            backend.sampled_impl(cfg.num_sampled, q.shape[-1]),
+        )
     raise ValueError(f"unknown loss {cfg.kind!r}")

@@ -4,7 +4,7 @@ Motivation (VERDICT r4 Next #1, BASELINE.json:11 scale): at config #5
 (V=1M, D=512, sampled softmax S=4096, B=512, T=64) only ~70k table rows can
 carry non-zero gradient per step — inputs ∪ targets ∪ the negative pool —
 yet dense Adam reads AND writes params+m+v over all 1M rows every step
-(~14 GB of HBM traffic ≈ 17 ms of a 69 ms step doing arithmetic on zeros).
+(~14 GB of device-memory traffic spent on arithmetic on zeros).
 
 This optimizer updates the table rows that the step actually touched, by id:
 
@@ -13,7 +13,7 @@ This optimizer updates the table rows that the step actually touched, by id:
   used by every loss implementation), not discovered from the gradient. A
   test pins the invariant that rows outside the touched set have exactly
   zero dense gradient.
-- Per-table moments (m, v) stay dense in HBM but are read/written only at
+- Per-table moments (m, v) stay dense in device memory but are read/written only at
   the touched rows via gather → Adam-on-rows → scatter. Duplicate ids are
   deduplicated (sort + first-occurrence mask) so each row gets exactly one
   Adam step; the dense gradient has already summed duplicate contributions.
@@ -30,7 +30,7 @@ Adam update with the same schedule/clip, so the only semantic difference
 from ``optax.chain(clip_by_global_norm, adam)`` is the lazy moments on the
 big tables.
 
-TPU-native notes: all shapes are static (the id vectors have fixed length
+Notes: all shapes are static (the id vectors have fixed length
 2·B·T + S; dedup pads duplicates to an out-of-bounds sentinel whose gathers
 fill 0 and whose scatters drop), so the whole update jits into the train
 step and shards over the mesh — the moment tables row-shard over 'model'
@@ -54,13 +54,11 @@ _TABLE_ID_SOURCE = {"poi": "poi", "out": "poi", "out_bias": "poi", "user": "user
 # Tables at or below this size take the MASKED-DENSE lazy-Adam path: the same
 # semantics (update + moment decay only on touched rows) computed as
 # streaming elementwise ops over the full table gated by a [V] touched mask.
-# Below ~0.5 GiB a full-table pass costs well under a millisecond, while the
-# gather/dedup/scatter machinery costs several (XLA TPU scatters do
-# full-table passes regardless of N — measured, BASELINE.md): the same-window
-# config-#4 A/B showed the scatter path losing 21.4k → 14.6k seq/s at V=37k.
-# Above the threshold (config #5's 2 GiB tables) the scatter path wins
-# because seven full-table passes are the larger cost. Tests monkeypatch
-# this to pin both paths.
+# Below ~0.5 GiB a full-table pass is cheap next to the gather/dedup/scatter
+# machinery; above it (config #5's 2 GiB tables) the seven full-table passes
+# are the larger cost and the scatter path takes over. The threshold has not
+# been measured on the GPU yet (ROADMAP.md). Tests monkeypatch this to pin
+# both paths.
 DENSE_LAZY_MAX_BYTES = 512 * 2**20
 
 
@@ -95,7 +93,7 @@ def rows_mode_enabled(cfg: Config, dims, n_model: int) -> bool:
     softmax, AND a table too big for the masked-dense path (below
     ``DENSE_LAZY_MAX_BYTES`` the dense cotangent + streaming masked update
     cost well under a millisecond, while rows-mode dedup/scatter machinery
-    costs several — measured, BASELINE.md config-#4 A/B)."""
+    costs several)."""
     return (
         cfg.train.table_update == "sparse"
         and n_model == 1
@@ -136,8 +134,7 @@ def _compact_unique(s: jax.Array, oob: int) -> tuple[jax.Array, jax.Array]:
     with DISTINCT out-of-bounds sentinels ``oob + j`` — so the whole vector
     is strictly sorted with no duplicates, and every downstream gather/
     scatter can legally assert ``unique_indices`` + ``indices_are_sorted``
-    (without those hints the TPU scatter lowering serializes combining and
-    dominated the update — measured 2x slower than dense Adam before this).
+    (without those hints a scatter lowering may serialize combining).
     """
     n = s.shape[0]
     first = jnp.concatenate([jnp.ones((1,), bool), s[1:] != s[:-1]])

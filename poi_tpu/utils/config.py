@@ -43,7 +43,7 @@ class DataConfig:
     seed: int = 0
     loader_backend: str = "threaded"  # threaded | grain (data/pipeline.py)
     # "host": epoch-permutation loaders feed batches from CPU. "device":
-    # upload examples to HBM once and sample batches in-graph (uniform with
+    # upload examples to device memory once and sample batches in-graph (uniform with
     # replacement; zero per-step host payload — data/device_sampler.py).
     sampler: str = "host"  # host | device
 
@@ -68,10 +68,6 @@ class ModelConfig:
     attn_block_size: int = 128
     # Compute dtype for the tower (params stay fp32).
     compute_dtype: str = "bfloat16"
-    # Recurrent cell implementation: "auto" picks the fused Pallas recurrence
-    # kernel on TPU when shapes are lane-aligned, else lax.scan ("scan" and
-    # "pallas" force a path; scan is the oracle).
-    cell_impl: str = "auto"  # auto | pallas | scan
     # jax.checkpoint the recurrent cell: O(T) gate residuals -> recompute in
     # backward; enables long-T training in fixed memory (SURVEY.md §5).
     remat_cell: bool = False
@@ -83,11 +79,6 @@ class LossConfig:
     num_negatives: int = 1  # BPR negatives per positive
     num_sampled: int = 512  # sampled-softmax negatives per batch
     label_smoothing: float = 0.0
-    # Kernel dispatch for ce/sampled_softmax (mirrors model.cell_impl):
-    #   auto  — Pallas fused kernels on TPU when shapes qualify (the default)
-    #   fused — force the fused path (still falls back off-TPU)
-    #   xla   — force the plain XLA implementation (debug/bisection)
-    impl: str = "auto"  # auto | fused | xla
 
 
 @dataclass(frozen=True)
@@ -127,9 +118,9 @@ class TrainConfig:
 class MeshConfig:
     """Device mesh layout: ('data', 'model') axes.
 
-    The 'model' axis carries vocab-sharded embedding tables (all-to-all / psum
-    riding ICI); the 'data' axis carries batch sharding (grad psum, may span
-    DCN on multi-host slices). -1 means "infer from available devices".
+    The 'model' axis carries vocab-sharded embedding tables (all-to-all /
+    psum between cards); the 'data' axis carries batch sharding (grad psum,
+    may span hosts). -1 means "infer from available devices".
     """
 
     data: int = -1
@@ -144,7 +135,6 @@ class MeshConfig:
 class EvalConfig:
     recall_ks: tuple[int, ...] = (1, 5, 10)
     batch_size: int = 256
-    topk_impl: str = "pallas"  # pallas | xla  (xla path is the correctness oracle)
     max_eval_users: int = 10_000
 
 

@@ -1,7 +1,7 @@
 """Whole-step MFU of config #4's attention workload (VERDICT r3 Next #3).
 
-Same honest-fence methodology as bench.py (device-sampled batches, K-step
-dispatch, device->host scalar fence), at the preset's own shapes and at the
+Same methodology as bench.py (device-sampled batches, K-step dispatch,
+windows ending in block_until_ready), at the preset's own shapes and at the
 bench batch size, so the attention tower's step efficiency is on the record
 next to the GRU bench point.
 
@@ -19,6 +19,8 @@ import bench  # repo-root bench.py
 
 
 def main() -> int:
+    import jax
+
     from poi_tpu.configs.presets import get_config
     from poi_tpu.data.dataset import load_dataset
     from poi_tpu.models.base import DataDims
@@ -48,7 +50,7 @@ def main() -> int:
             )
             sps = bench._throughput(cfg, ds, steps=40, repeats=4, dims=dims)
             flops = bench._step_flops(cfg, dims)
-            mfu = flops * (sps / bs) / bench.V5E_BF16_PEAK
+            mfu = flops * (sps / bs) / bench.peak_bf16_flops(jax.devices()[0].device_kind)
             print(
                 f"attention batch={bs:4d} ({tu:6s}): {sps:9,.0f} seq/s "
                 f"({bs / (sps / 1e3):6.3f} ms/step, whole-step MFU {mfu:.1%}, "

@@ -3,8 +3,8 @@
 VERDICT r4 Weak #1: the old eval path ran attention + output projection +
 user-add for all T positions and kept one. ``queries_last`` computes them at
 the final valid position only. This measures both formulations of the
-[B, D] last-query computation (chained in-graph + device→host fence,
-slope-of-mins style n-differencing) at config-#4 and config-#5 shapes.
+[B, D] last-query computation (chained in-graph, ending in a device→host
+read, slope-of-mins style n-differencing) at config-#4 and config-#5 shapes.
 
     python scripts/bench_eval_path.py
 """

@@ -2,7 +2,7 @@
 to find the fastest honest headline point for bench.py and quantify the
 dispatch-amortization and batch-efficiency levers behind the whole-step MFU
 gap (VERDICT r2 Missing #4). Reuses bench._throughput (device-sampled path,
-device->host scalar fence).
+windows ending in block_until_ready).
 
     python scripts/bench_variants.py [repeats]
 """
@@ -18,6 +18,8 @@ import bench  # repo-root bench.py
 
 
 def main() -> int:
+    import jax
+
     from poi_tpu.configs.presets import get_config
     from poi_tpu.data.dataset import load_dataset
     from poi_tpu.models.base import DataDims
@@ -48,7 +50,7 @@ def main() -> int:
             steps = max(40, 2 * spc)
             sps = bench._throughput(cfg, ds, steps=steps, repeats=repeats, dims=dims)
             flops = bench._step_flops(cfg, dims)
-            mfu = flops * (sps / bs) / bench.V5E_BF16_PEAK
+            mfu = flops * (sps / bs) / bench.peak_bf16_flops(jax.devices()[0].device_kind)
             print(
                 f"batch={bs:5d} spc={spc:3d}: {sps:9,.0f} seq/s  "
                 f"({bs / (sps / 1e3):6.3f} ms/step, MFU {mfu:.1%})",

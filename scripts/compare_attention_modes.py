@@ -2,13 +2,12 @@
 
 VERDICT r4 Missing #4: the SP attention modes (T4/T5) had correctness
 evidence but no measured basis, and config #5 silently ran the default
-blockwise. Real multi-chip timing needs hardware this box lacks, so — same
-methodology as compare_embedding_modes.py — this compiles the attention
+blockwise. Same methodology as compare_embedding_modes.py: this compiles the
+attention
 block (including the P('data',None,None) ↔ P('data','model',None) reshard
 boundaries the SP modes impose on the surrounding tower) fwd+bwd on a fake
 8-device mesh at config-#5 dims and counts per-device collective bytes in
-the optimized HLO. Results recorded in BASELINE.md; config #5's attn_impl
-choice cites them.
+the optimized HLO; config #5's attn_impl choice cites them.
 
     python scripts/compare_attention_modes.py [--dim 512] [--window 16]
 """

@@ -1,11 +1,10 @@
 """psum vs a2a vocab-sharded lookup: collective traffic comparison.
 
 VERDICT r1 Weak #7: the a2a routing mode ends in a full all_gather, so its
-advantage over psum was unmeasured. Real multi-chip timing needs hardware
-this box doesn't have (1 TPU chip), so this script compiles BOTH lookup modes
+advantage over psum was unmeasured. This script compiles BOTH lookup modes
 on a fake 8-device mesh at config-#5-shaped dims and counts the per-device
-collective bytes in the optimized HLO — the quantity ICI bandwidth actually
-charges for. Results are recorded in BASELINE.md.
+collective bytes in the optimized HLO — the quantity the links between cards
+charge for. It needs no accelerator.
 
     python scripts/compare_embedding_modes.py [--model-shards 8] [--dim 512]
 """

@@ -2,8 +2,8 @@
 (counterpart of profile_step.py, which covers the CE/GRU bench workload).
 
 Splits the sampled-softmax attention step into tower fwd / tower fwd+bwd /
-loss fwd+bwd (fixed q) / optimizer, same chained-in-graph + device->host
-fence methodology (see profile_step.py docstring).
+loss fwd+bwd (fixed q) / optimizer, same chained-in-graph methodology (see
+profile_step.py docstring).
 
     python scripts/profile_attn.py [batch_size]
 """
@@ -110,7 +110,7 @@ def main():
     print(
         f"batch={B} T={T} V={trainer.dims.num_pois_padded} D={cfg.model.embed_dim} "
         f"W={cfg.model.attn_window} heads={cfg.model.attn_heads} "
-        f"sampled={cfg.loss.num_sampled} cell={cfg.model.cell_impl}"
+        f"sampled={cfg.loss.num_sampled}"
     )
     print(f"  harness null body       : {t_null*1e3:7.3f} ms (subtracted from rows)")
     for tag, t in raw:

@@ -1,7 +1,7 @@
-"""Multi-host scaling benchmark harness (SURVEY.md §7 step 8; BASELINE.md
-"Examples/s scaling efficiency, 1 -> N hosts" — target >= 90% linear).
+"""Multi-host scaling benchmark harness (SURVEY.md §7 step 8:
+"Examples/s scaling efficiency, 1 -> N hosts").
 
-Hardware-ready: on a real multi-host slice, run this ON EVERY HOST with the
+On a real multi-host cluster, run this ON EVERY HOST with the
 same coordinator (weak scaling: the per-host batch stays fixed, the global
 batch grows with N):
 
@@ -10,13 +10,13 @@ batch grows with N):
         --per-host-batch 256 --steps 100 --out /shared/scaling.json
 
 Process 0 appends one row per run to ``--out`` and prints the efficiency
-table against the N=1 row (run N=1 first). Until a slice exists, the same
+table against the N=1 row (run N=1 first). Without a cluster, the same
 binary validates degenerately:
 
     python scripts/scaling_bench.py --local-processes 2 --config smoke
 
 spawns N local processes over gloo CPU collectives with 4 fake devices each —
-the exact code path a real slice runs, minus the hardware (SURVEY.md §4
+the exact code path a real cluster runs, minus the hardware (SURVEY.md §4
 "Distributed (no cluster)").
 """
 

@@ -1,5 +1,8 @@
 """Checkpoint/resume tests: kill-and-restore continuity (SURVEY.md §4
-Fault/resume tier) including the fault-injection path."""
+Fault/resume tier) including the fault-injection path, and the on-disk
+format's round trips (sharded, across mesh layouts, selected, retention)."""
+
+import os
 
 import numpy as np
 import pytest
@@ -201,3 +204,90 @@ def test_config_mismatch_warning(tmp_path, caplog):
     # Identical / absent configs stay silent.
     assert warn_config_mismatch(cfg.to_json(), cfg) == []
     assert warn_config_mismatch(None, cfg) == []
+
+
+def _assert_trees_equal(a, b):
+    la, lb = jax.tree.leaves(a), jax.tree.leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert x.shape == y.shape and x.dtype == y.dtype
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+@pytest.mark.parametrize("save_mesh,restore_mesh", [((4, 2), (4, 2)), ((4, 2), (2, 4)), ((4, 2), (8, 1))])
+def test_sharded_roundtrip_across_layouts(setup, tmp_path, eight_devices, save_mesh, restore_mesh):
+    """Sharded state saved from one 8-device layout restores bit-exactly into
+    the shardings of another (each device's slice assembled from the saved
+    shards that overlap it)."""
+    from poi_tpu.parallel.mesh import make_mesh
+    from poi_tpu.parallel.shardings import state_shardings
+
+    cfg, ds = setup
+    dims = DataDims.from_dataset(ds).padded_to(4)
+    t_save = Trainer(cfg, dims, mesh=make_mesh(*save_mesh))
+    state = t_save.init_state()
+    mgr = CheckpointManager(str(tmp_path / "sh"))
+    mgr.save(7, state, loader_state={"next_index": 3}, config_json=cfg.to_json())
+    t_load = Trainer(cfg, dims, mesh=make_mesh(*restore_mesh))
+    template = t_load.init_state()
+    sh = state_shardings(template, t_load.mesh, t_load.dims.num_pois_padded)
+    restored, loader_state = mgr.restore(abstract_like(template, sh))
+    _assert_trees_equal(state.params, restored.params)
+    _assert_trees_equal(state.opt_state, restored.opt_state)
+    table = restored.params["embed"]["poi"]
+    assert table.sharding.is_equivalent_to(sh.params["embed"]["poi"], table.ndim)
+    assert int(restored.step) == int(state.step) and loader_state == {"next_index": 3}
+    mgr.close()
+
+
+@pytest.mark.parametrize("async_save", [False, True])
+def test_max_to_keep_and_latest(setup, tmp_path, async_save):
+    cfg, ds = setup
+    state = Trainer(cfg, DataDims.from_dataset(ds)).init_state()
+    mgr = CheckpointManager(str(tmp_path / "keep"), max_to_keep=2, async_save=async_save)
+    for step in (1, 2, 3, 4):
+        mgr.save(step, state)
+    mgr.wait()
+    assert mgr.latest_step() == 4
+    assert sorted(int(n) for n in os.listdir(mgr.directory) if n.isdigit()) == [3, 4]
+    assert not [n for n in os.listdir(mgr.directory) if n.endswith(".tmp")]
+    mgr.delete(4)
+    assert mgr.latest_step() == 3
+    mgr.close()
+
+
+def test_selected_roundtrip_and_info(setup, tmp_path):
+    cfg, ds = setup
+    state = Trainer(cfg, DataDims.from_dataset(ds)).init_state()
+    mgr = CheckpointManager(str(tmp_path / "sel"))
+    assert mgr.selected_step() is None and mgr.selected_info() is None
+    mgr.save_selected(5, state.params, metric="recall@10", score=0.25)
+    mgr.save_selected(9, state.params, metric="recall@10", score=0.5)
+    assert mgr.selected_step() == 9
+    assert mgr.selected_info() == {"step": 9, "metric": "recall@10", "score": 0.5}
+    _assert_trees_equal(state.params, mgr.restore_selected(abstract_like(state).params))
+    assert mgr.latest_step() is None  # the selection is not a resumable step
+    mgr.close()
+
+
+def test_restore_rejects_mismatched_tree(setup, tmp_path):
+    """A checkpoint of another model names the leaves that do not match
+    instead of restoring garbage."""
+    cfg, ds = setup
+    state = Trainer(cfg, DataDims.from_dataset(ds)).init_state()
+    mgr = CheckpointManager(str(tmp_path / "mm"))
+    mgr.save(1, state, config_json=cfg.to_json())
+    other = Trainer(cfg.with_overrides({"model.kind": "lstm"}), DataDims.from_dataset(ds)).init_state()
+    with pytest.raises(ValueError, match="does not match"):
+        mgr.restore(abstract_like(other))
+    assert mgr.saved_config() == cfg.to_json()
+    mgr.close()
+
+
+def test_missing_checkpoint_raises(tmp_path):
+    mgr = CheckpointManager(str(tmp_path / "empty"))
+    assert mgr.latest_step() is None and mgr.saved_config() is None
+    with pytest.raises(FileNotFoundError):
+        mgr.restore(None)
+    with pytest.raises(FileNotFoundError):
+        mgr.restore_selected(None)

@@ -38,14 +38,13 @@ def test_evaluate_with_sharded_params_matches_dense(setup, eight_devices):
         assert abs(m_tp[k] - m_dp[k]) < 1e-6, (k, m_tp, m_dp)
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
-def test_sharded_eval_path_matches_dense(setup, eight_devices, impl):
+@pytest.mark.parametrize("data,model", [(4, 2), (2, 4)])
+def test_sharded_eval_path_matches_dense(setup, eight_devices, data, model):
     """evaluate(mesh=...) routes through make_sharded_topk and matches the
     dense (gathering) path bit-for-bit on metrics."""
     cfg, ds = setup
-    cfg = cfg.with_overrides({"eval.topk_impl": impl})
     dims = DataDims.from_dataset(ds)
-    mesh = make_mesh(data=4, model=2)
+    mesh = make_mesh(data=data, model=model)
     t_tp = Trainer(cfg, dims, mesh=mesh)
     s_tp = t_tp.init_state()
 
@@ -55,26 +54,25 @@ def test_sharded_eval_path_matches_dense(setup, eight_devices, impl):
         assert abs(m_sharded[k] - m_dense[k]) < 1e-6, (k, m_sharded, m_dense)
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
-def test_sharded_eval_never_gathers_catalog(setup, eight_devices, impl):
+@pytest.mark.parametrize("data,model", [(4, 2), (2, 4)])
+def test_sharded_eval_never_gathers_catalog(setup, eight_devices, data, model):
     """The north-star eval sentence (VERDICT r1 Missing #1): on a
     model-parallel mesh the compiled eval HLO must contain NO all-gather of a
     vocab-sized array — the table stays P('model', None) end-to-end."""
     cfg, ds = setup
-    cfg = cfg.with_overrides({"eval.topk_impl": impl})
     dims = DataDims.from_dataset(ds)
-    mesh = make_mesh(data=4, model=2)
+    mesh = make_mesh(data=data, model=model)
     trainer = Trainer(cfg, dims, mesh=mesh)
     state = trainer.init_state()
 
-    prep = prepare_catalog(state.params, cfg, ds.poi_counts, mesh)
+    prep = prepare_catalog(state.params, cfg)
     vp = trainer.dims.num_pois_padded
-    vpad = prep.table.shape[0]  # per-shard tile padding may grow it
+    vpad = prep.table.shape[0]
     d = prep.table.shape[1]
     # The prepared table itself must be vocab-sharded.
     assert prep.table.sharding.spec[0] == "model", prep.table.sharding
 
-    fn = make_topk_fn(trainer.model, cfg, k=10, mesh=mesh, tile_v=prep.tile_v)
+    fn = make_topk_fn(trainer.model, cfg, k=10, mesh=mesh)
     batch, _, _ = next(eval_batches(ds.test, cfg.eval.batch_size))
     batch = jax.device_put(batch, batch_shardings(batch, mesh))
     hlo = fn.lower(state.params, prep.table, prep.bias, batch).compile().as_text()

@@ -1,4 +1,5 @@
-"""Fused (chunked, custom-VJP) CE vs the dense oracle: values and grads."""
+"""Chunked (XLA scan, custom-VJP) and streamed (Pallas kernel) CE vs the
+dense oracle: values and grads."""
 
 import jax
 import jax.numpy as jnp
@@ -56,14 +57,16 @@ def test_fused_ce_under_jit_and_value_and_grad():
     assert np.isfinite(float(loss)) and np.isfinite(np.asarray(dq)).all()
 
 
-def test_pallas_ce_interpret_matches_dense():
-    """The Pallas kernels (per-lane online-LSE forward + single fused backward)
-    in interpreter mode vs the dense oracle — covers the TPU code path on CPU."""
-    from poi_tpu.ops.fused_ce import fused_ce_loss_pallas
+@pytest.mark.parametrize("shape", [(3, 4, 32, 180), (2, 5, 100, 300)])
+def test_pallas_ce_interpret_matches_dense(shape):
+    """The streamed CE (the Pallas kernel of ops/online_lse.py, in
+    interpreter mode) vs the dense oracle: value and every gradient."""
+    from poi_tpu.train.losses import streamed_ce_loss
 
-    q, table, bias, y, mask = _case(B=3, T=4, D=32, V=180, seed=4)
+    B, T, D, V = shape
+    q, table, bias, y, mask = _case(B=B, T=T, D=D, V=V, seed=4)
     got, g_p = jax.value_and_grad(
-        lambda *a: fused_ce_loss_pallas(*a, y, mask, interpret=True), argnums=(0, 1, 2)
+        lambda *a: streamed_ce_loss(*a, y, mask, interpret=True), argnums=(0, 1, 2)
     )(q, table, bias)
     want, g_d = jax.value_and_grad(
         lambda *a: ce_loss(*a, y, mask), argnums=(0, 1, 2)

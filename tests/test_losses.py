@@ -3,6 +3,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from poi_tpu.train import losses
 
@@ -107,18 +108,29 @@ def test_losses_differentiable():
         assert np.abs(np.asarray(g)).sum() > 0
 
 
-def test_loss_impl_override():
-    """loss.impl=xla forces the plain implementations regardless of backend;
-    unknown values raise at config parse... (string field — validated here
-    at dispatch: 'fused' on CPU still falls back without error)."""
+@pytest.mark.parametrize(
+    "kind,extra",
+    [("ce", {}), ("ce", {"loss.label_smoothing": "0.1"}), ("bpr", {}), ("sampled_softmax", {"loss.num_sampled": "64"})],
+)
+def test_build_loss_fn_on_cpu_matches_plain_losses(kind, extra):
+    """On the CPU every objective dispatches to its plain XLA implementation
+    (backend.ce_impl / sampled_impl), with the same value as calling it."""
     from poi_tpu.configs.presets import get_config
     from poi_tpu.train.losses import build_loss_fn
 
-    cfg = get_config("smoke").with_overrides(
-        {"loss.kind": "sampled_softmax", "loss.num_sampled": "256", "loss.impl": "xla"}
-    )
-    fn = build_loss_fn(cfg.loss, 512, embed_dim=128)
-    assert fn is not None
-    cfg2 = cfg.with_overrides({"loss.impl": "fused"})
-    fn2 = build_loss_fn(cfg2.loss, 512, embed_dim=128)  # CPU -> XLA fallback, no error
-    assert fn2 is not None
+    cfg = get_config("smoke").with_overrides({"loss.kind": kind, **extra}).loss
+    rng = np.random.default_rng(1)
+    V, D = 50, 8
+    q = jnp.asarray(rng.normal(size=(2, 3, D)), jnp.float32)
+    table = jnp.asarray(rng.normal(size=(V, D)), jnp.float32)
+    bias = jnp.zeros((V,), jnp.float32)
+    y = jnp.asarray(rng.integers(0, V, (2, 3)), jnp.int32)
+    mask = jnp.ones((2, 3))
+    key = jax.random.key(0)
+    got = float(build_loss_fn(cfg, V)(q, table, bias, y, mask, key))
+    want = {
+        "ce": lambda: losses.ce_loss(q, table, bias, y, mask, cfg.label_smoothing),
+        "bpr": lambda: losses.bpr_loss(q, table, bias, y, mask, key, cfg.num_negatives, V),
+        "sampled_softmax": lambda: losses.sampled_softmax_loss(q, table, bias, y, mask, key, cfg.num_sampled, V),
+    }[kind]()
+    assert got == pytest.approx(float(want), rel=1e-6)

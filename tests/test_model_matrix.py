@@ -97,8 +97,8 @@ def test_dropout_trains_and_is_off_at_eval(ds_and_cfg):
 def test_strnn_beats_popularity_baseline():
     """VERDICT r1 item 3 regression guard: the ST-RNN family config (user
     embedding + transition interpolation) must beat the popularity floor on
-    a scaled-down synthetic Gowalla. On-chip config #3 measures r@10 ~2x the
-    floor (BASELINE.md); this CPU point was calibrated at ~0.31 vs floor
+    a scaled-down synthetic Gowalla. Config #3 at full budget reaches r@10
+    ~2.5x the floor (README.md quality table); this CPU point was calibrated at ~0.31 vs floor
     ~0.27 in 1500 steps."""
     from poi_tpu.eval.evaluate import evaluate, popularity_baseline
 

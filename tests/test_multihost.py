@@ -1,8 +1,8 @@
 """True multi-process validation (SURVEY.md §2.2 T7): two JAX processes,
 jax.distributed over a local coordinator, gloo CPU collectives, a global
 (4 data x 2 model) mesh spanning both processes, per-host loader shards, and
-the real Trainer/train() path — the same code that runs on a multi-host TPU
-slice, minus the hardware."""
+the real Trainer/train() path — the same code that runs on a multi-host GPU
+cluster, minus the hardware."""
 
 import json
 import subprocess
@@ -40,7 +40,6 @@ _WORKER = textwrap.dedent(
             "train.num_steps": "5",
             "train.log_every": "1",
             "train.batch_size": "16",
-            "eval.topk_impl": "pallas",
         }
     )
     ds = load_dataset(cfg.data)
@@ -154,7 +153,7 @@ _SERVE_WORKER = textwrap.dedent(
     from poi_tpu.train.loop import Trainer
 
     cfg = get_config("smoke").with_overrides(
-        {"mesh.model": "2", "eval.topk_impl": "pallas"}
+        {"mesh.model": "2"}
     )
     ds = load_dataset(cfg.data)
     trainer = Trainer(cfg, DataDims.from_dataset(ds))
@@ -208,7 +207,6 @@ _SERVE_LOOP_WORKER = textwrap.dedent(
     cfg = get_config("smoke").with_overrides(
         {
             "mesh.model": "2",
-            "eval.topk_impl": "pallas",
             "checkpoint.directory": ckpt_dir,
         }
     )

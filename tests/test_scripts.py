@@ -1,5 +1,5 @@
-"""Dev-script smoke coverage: the measurement tooling the BASELINE.md rows
-depend on must keep running as the APIs underneath evolve."""
+"""Dev-script smoke coverage: the measurement tooling under scripts/ must
+keep running as the APIs underneath evolve."""
 
 import subprocess
 import sys

@@ -181,13 +181,11 @@ def test_serving_matches_offline_eval():
         )
     ]
     k = 8
-    prep = prepare_catalog(params, cfg, ds.poi_counts, None)
-    topk_fn = make_topk_fn(model, cfg, k, tile_v=prep.tile_v)
+    prep = prepare_catalog(params, cfg)
+    topk_fn = make_topk_fn(model, cfg, k)
     offline = None
     for batch, targets, n_valid in eval_batches(ds.test, cfg.eval.batch_size):
         ids = np.asarray(topk_fn(params, prep.table, prep.bias, batch))[:n_valid]
-        if prep.id_map is not None:
-            ids = prep.id_map[ids]
         offline = ids[n_test * u]
         break
     served = rec.recommend([hist], k=k, exclude_visited=False, user_ids=[u])[0]
